@@ -1,4 +1,4 @@
-"""Binary-muVT validation on real TPU: CO2/N2 mixed-gas uptake.
+"""Binary-muVT validation: CO2/N2 mixed-gas uptake.
 
 The flue-gas separation pair under the two-species grand-canonical app
 (mc/gcmc_binary.py): BOTH TraPPE species exchange with reservoirs at
@@ -17,11 +17,11 @@ INDEPENDENT routes must meet, exactly as in the gcmc_water artifact —
 
 Different ensembles, movers, and estimators over the same energy model
 (Ewald quadrupoles + LB-crossed TraPPE LJ); agreement validates the
-per-species exchange rules of the binary app on the compiled TPU f32
+per-species exchange rules of the binary app on the compiled f32
 path.  CO2 is the more strongly interacting species (larger
 quadrupole, deeper LJ), so S > 1 is the physical expectation.
 
-Run: `python docs/validation/run_binary_co2_n2.py` (TPU, ~8 min).
+Run: `python docs/validation/run_binary_co2_n2.py`.
 Writes docs/validation/binary_co2_n2.txt.
 """
 
@@ -33,6 +33,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

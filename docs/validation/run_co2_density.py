@@ -8,7 +8,7 @@ density of CO2 at 240 K is a literature-pinned number (experiment
 reproduce within ~1% (Potoff & Siepmann, AIChE J. 47, 1676 (2001)).
 Nothing in this framework was tuned to it.
 
-Run: `python docs/validation/run_co2_density.py` (TPU, ~10 min).
+Run: `python docs/validation/run_co2_density.py`.
 Writes docs/validation/co2_density.txt.
 """
 
@@ -20,6 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -77,7 +81,7 @@ def main():
         "TraPPE CO2 NPT density validation (rigid linear molecules)",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: {N_MOL} CO2 x {N_CHAINS} chains, T = {T} K, "
-        f"P = {P_BAR} bar (sat. line), Ewald, f32, mega path "
+        f"P = {P_BAR} bar (sat. line), Ewald, f32, jnp path "
         f"+ ln-V volume moves",
         f"equil/production: {EQUIL_BLOCKS}/{PROD_BLOCKS} blocks x "
         f"{SWEEPS} sweeps",

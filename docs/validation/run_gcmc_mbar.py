@@ -1,5 +1,4 @@
-"""MBAR activity pooling of an interacting-LJ GCMC activity-ladder run
-on TPU.
+"""MBAR activity pooling of an interacting-LJ GCMC activity-ladder run.
 
 `mc/mbar.reweight_activity_mbar` pools muVT samples taken at several
 activities: at fixed T, V the beta*U term is common to every activity
@@ -18,7 +17,7 @@ Protocol: one 8-rung x 32-chain ladder run, MBAR-pool the pooled N
 series, predict <N> at two never-sampled activities between rungs, and
 gate against direct muVT runs at those activities.
 
-Run: `python docs/validation/run_gcmc_mbar.py` (TPU, ~4 min).
+Run: `python docs/validation/run_gcmc_mbar.py`.
 Writes docs/validation/gcmc_mbar.txt.
 """
 
@@ -30,6 +29,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -82,7 +85,7 @@ def main():
 
     lines = [
         "MBAR activity pooling of a GCMC activity-ladder run "
-        "(supercritical LJ, TPU)",
+        "(supercritical LJ)",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: box={BOX} T={T} r_cut=2.5 no-LRC, one ladder run of "
         f"{len(Z_RUNGS)} rungs x {PER_RUNG} chains "

@@ -1,4 +1,4 @@
-"""Molecular-GCMC validation on real TPU: supercritical SPC/E water.
+"""Molecular-GCMC validation: supercritical SPC/E water.
 
 Two INDEPENDENT routes to the excess chemical potential must meet:
 
@@ -6,7 +6,7 @@ Two INDEPENDENT routes to the excess chemical potential must meet:
     orientational-bias insertions/deletions with carried Ewald
     structure factors) samples <N> at fixed activity z, giving
     beta mu_ex = ln(z / <rho>);
-  * NVT route: the main driver (mega-kernel sweeps on TPU) at fixed
+  * NVT route: the main driver (sweeps) at fixed
     N = round(<N>) in the same box, with Widom ghost insertions
     (mc/widom.py) giving beta mu_ex = -ln<exp(-beta dU)>.
 
@@ -14,9 +14,9 @@ The two samplers share the energy model but are different ensembles,
 different movers, and different estimators — agreement is an absolute
 consistency check of the exchange acceptance rules (incl. the
 self+intra constants and the Rosenbluth bias correction) on the
-compiled TPU path in f32.
+compiled path in f32.
 
-Run: `python docs/validation/run_gcmc_water.py` (TPU, ~10 min).
+Run: `python docs/validation/run_gcmc_water.py`.
 Writes docs/validation/gcmc_water.txt.
 """
 
@@ -28,6 +28,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -37,8 +41,8 @@ from metropolismontecarlo_tpu.mc.gcmc_mol import MolGCMC
 from metropolismontecarlo_tpu.models.system import RunParams
 from metropolismontecarlo_tpu.models.water import spce_system
 
-# WELL-supercritical state point (SPC/E T_c ~ 640 K).  Measured on
-# TPU: at 500 K any z above the tiny saturation activity ~2e-4 A^-3
+# WELL-supercritical state point (SPC/E T_c ~ 640 K).  Measured: at
+# 500 K any z above the tiny saturation activity ~2e-4 A^-3
 # condenses and fills every slot, and even 700 K sits on a near-
 # critical flat isotherm (z = 2e-3 ran away from N = 24 to 88+).  At
 # 1000 K the isotherm is steep and near-ideal, so the activity pins a

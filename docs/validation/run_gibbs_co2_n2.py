@@ -1,4 +1,4 @@
-"""Binary Gibbs-ensemble validation on real TPU: CO2/N2 vapor-liquid
+"""Binary Gibbs-ensemble validation: CO2/N2 vapor-liquid
 equilibrium at 240 K.
 
 The two-component Gibbs ensemble (mc/gibbs_binary.py) on the TraPPE
@@ -21,7 +21,7 @@ softer box; the init/block guard enforces this).
 Protocol: the liquid box melts with transfers OFF first (hot lattices
 evaporate unrelaxed — the Gibbs-water lesson).
 
-Run: `python docs/validation/run_gibbs_co2_n2.py` (TPU, ~15 min).
+Run: `python docs/validation/run_gibbs_co2_n2.py`.
 Writes docs/validation/gibbs_co2_n2.txt.
 """
 
@@ -33,6 +33,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -90,12 +94,10 @@ def main():
                   f"({time.time() - t0:.0f} s)", flush=True)
 
     # phase 1: full Gibbs moves
-    mega_mode = os.environ.get("GIBBS_MEGA", "full")
-    mega, n_or = {"full": ("full", 1),
-                  "jnp": (None, N_ORIENT)}[mega_mode]
-    out.append(f"transfers: {'IN-KERNEL unbiased (mega=full)' if mega else f'jnp Rosenbluth n_orient={n_or}'}")
+    n_or = N_ORIENT
+    out.append(f"transfers: jnp Rosenbluth n_orient={n_or}")
     g = BinaryGibbsEnsemble(sys_, params, dv_max=0.04, p_transfer=0.35,
-                            dtype=jnp.float32, n_orient=n_or, mega=mega)
+                            dtype=jnp.float32, n_orient=n_or)
     prod_from = BLOCKS // 3
     acc = {"rho_liq": [], "rho_vap": [], "x": [], "p_liq": [],
            "p_vap": []}

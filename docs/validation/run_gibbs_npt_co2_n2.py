@@ -1,4 +1,4 @@
-"""Constant-pressure (NPT) Gibbs validation on real TPU: CO2/N2 at
+"""Constant-pressure (NPT) Gibbs validation: CO2/N2 at
 240 K and fixed P — the CROSS-METHOD anchor against the NVT-Gibbs
 artifact.
 
@@ -25,9 +25,9 @@ Gates:
     (~8 bar) would make any gate vacuous (round-4 verdict);
   * drift / structure-factor invariants (per-block, production resync).
 
-Transfers run IN-KERNEL (mega="full", ops/pallas/gibbs_kernel.py).
+Transfers are unbiased (n_orient=1) jnp moves.
 
-Run: `python docs/validation/run_gibbs_npt_co2_n2.py` (TPU, ~15 min).
+Run: `python docs/validation/run_gibbs_npt_co2_n2.py`.
 Writes docs/validation/gibbs_npt_co2_n2.txt.
 """
 
@@ -40,9 +40,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("MMC_CACHE", "/tmp/mmc_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,7 +92,7 @@ def main():
            f"(z_N2 = 0.10, inside the measured envelope "
            f"[{X_N2_REF}, {Y_N2_REF}]); {N_CHAINS} chains",
            f"tuned Ewald: kappa_L {kappa_l:.2f}, nk {nk}, ksq {ksq}",
-           "transfers: IN-KERNEL (mega='full'); volume: per-box ln-V "
+           "transfers: jnp unbiased (n_orient=1); volume: per-box ln-V "
            "vs bath"]
 
     g0 = BinaryGibbsEnsemble(sys_, params, dv_max=0.0, p_transfer=0.0,
@@ -107,8 +107,7 @@ def main():
                   f"({time.time() - t0:.0f} s)", flush=True)
 
     g = BinaryGibbsEnsemble(sys_, params, dv_max=0.04, p_transfer=0.35,
-                            dtype=jnp.float32, mega="full",
-                            npt_pressure=p_bath)
+                            dtype=jnp.float32, npt_pressure=p_bath)
     prod_from = BLOCKS // 3
     acc = {"rho_liq": [], "x": [], "y": [], "p_liq": [], "p_vap": []}
     for b in range(BLOCKS):

@@ -1,4 +1,4 @@
-"""SPC/E liquid-vapor coexistence at 450 K by Gibbs-ensemble MC (TPU).
+"""SPC/E liquid-vapor coexistence at 450 K by Gibbs-ensemble MC.
 
 The two-box Gibbs ensemble finds both coexistence densities in one run:
 molecular transfers (orientational-bias k-trials) equalize the chemical
@@ -29,13 +29,11 @@ Gates:
     scales with the exchange traversal, not the endpoints — see
     mc/gcmc_mol.MolGCMC.run_block).
 
-Run: `python docs/validation/run_gibbs_water.py` (TPU, ~20 min).
-Writes docs/validation/gibbs_water.txt.  GIBBS_MEGA=full (default since
-round 4) runs the transfers IN-KERNEL (unbiased n_orient=1 on the
-both-boxes-in-one-row layout, ops/pallas/gibbs_kernel.py); hybrid is
-the round-3 path (folded kernel sweeps + jnp Rosenbluth transfers,
-n_orient=8) — the repo measured that orientational bias buys ~nothing
-in the deep-rejection regime, and the BAR mu gate holds either way.
+Run: `python docs/validation/run_gibbs_water.py`.
+Writes docs/validation/gibbs_water.txt.  GIBBS_N_ORIENT (default 1)
+sets the transfers' Rosenbluth trial count — orientational bias buys
+~nothing in the deep-rejection regime, and the BAR mu gate holds
+either way.
 """
 
 import os
@@ -47,9 +45,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("MMC_CACHE", "/tmp/mmc_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,10 +62,11 @@ CAP = int(os.environ.get("GIBBS_CAP", 256))
 M_WATER = 18.015268
 N_CHAINS = int(os.environ.get("GIBBS_CHAINS", 96))
 EQUIL_BLOCKS = int(os.environ.get("GIBBS_EQUIL", 3))
+N_ORIENT = int(os.environ.get("GIBBS_N_ORIENT", 1))
 PROD_BLOCKS = int(os.environ.get("GIBBS_PROD", 24))
 BLOCK_STEPS = int(os.environ.get("GIBBS_STEPS", 6000))
 # GIBBS_LRC=1 (default, round 5): sample the TAIL-CORRECTED model —
-# the in-kernel LJ long-range corrections enter every transfer AND
+# the LJ long-range corrections enter every transfer AND
 # volume acceptance (U_lrc = g(box) N^2 per box) — and gate the
 # artifact model-vs-model via r_cut-INVARIANCE: two full coexistence
 # measurements at r_cut 7.5 and 8.5 A must agree on rho_l, rho_v and
@@ -119,11 +118,10 @@ def run_one(r_cut_req, seed, t0, prod_blocks):
                        use_lrc=USE_LRC,
                        p_translate=0.5, p_volume=0.01, dr_max=0.4,
                        dphi_max=0.6)
-    mega_mode = os.environ.get("GIBBS_MEGA", "full")
-    mega, n_or = {"full": ("full", 1), "hybrid": (True, 8)}[mega_mode]
+    n_or = N_ORIENT
     g = MolGibbsEnsemble(spce_system(CAP), params, dv_max=0.03,
                          p_transfer=0.4, dtype=jnp.float32,
-                         n_orient=n_or, mega=mega)
+                         n_orient=n_or)
     st = g.init(jax.random.PRNGKey(seed), boxes=(box_l, box_v),
                 n_init=(n_l, n_v), n_chains=N_CHAINS)
     print(f"r_cut {r_cut:.1f}: boxes ({box_l:.2f}, {box_v:.2f}) A, "
@@ -135,7 +133,7 @@ def run_one(r_cut_req, seed, t0, prod_blocks):
     g_eq = MolGibbsEnsemble(spce_system(CAP),
                             dataclasses.replace(params, p_volume=0.0),
                             dv_max=0.03, p_transfer=0.0,
-                            dtype=jnp.float32, n_orient=8, mega=True)
+                            dtype=jnp.float32, n_orient=8)
     for b in range(int(os.environ.get("GIBBS_PREEQ", 25))):
         st, stats = g_eq.run_block(st, 12000)
         if b % 10 == 0 or b == 24:
@@ -229,15 +227,11 @@ def _gates_one(r, lines):
 def main():
     dev = jax.devices()[0]
     t0 = time.time()
-    mega_mode = os.environ.get("GIBBS_MEGA", "full")
     lines = [
-        "SPC/E liquid-vapor coexistence at 450 K: Gibbs-ensemble MC "
-        "(TPU)",
+        "SPC/E liquid-vapor coexistence at 450 K: Gibbs-ensemble MC",
         f"device: {dev.device_kind}, {N_CHAINS} chains x 2 boxes, "
-        f"cap {CAP}, transfers = "
-        + ("IN-KERNEL unbiased (mega='full', n_orient=1)"
-           if mega_mode == "full" else "jnp Rosenbluth n_orient=8")
-        + ", f32",
+        f"cap {CAP}, transfers = jnp Rosenbluth n_orient={N_ORIENT}, "
+        "f32",
     ]
     if not USE_LRC:
         r = run_one(7.5, 3, t0, PROD_BLOCKS)
@@ -281,7 +275,7 @@ def main():
         ok = ok1 and ok2 and inv_ok and win_ok
         lines += [
             "model = SPC/E + LJ tail corrections IN every transfer/"
-            "volume acceptance (round-5 in-kernel LRC)",
+            "volume acceptance",
             f"r_cut-INVARIANCE (the model-vs-model gate): "
             f"|d rho_l| {d_rho:.4f} < {tol_rho:.4f}, "
             f"|d rho_v| {d_rv:.4f} < {tol_rv:.4f}, "

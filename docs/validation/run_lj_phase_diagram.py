@@ -1,4 +1,4 @@
-"""LJ vapor-liquid phase diagram from TMMC on TPU: coexistence curve
+"""LJ vapor-liquid phase diagram from TMMC: coexistence curve
 and critical-point estimate from four flat-histogram runs.
 
 The canonical transition-matrix workflow (Errington 2003): at each
@@ -19,7 +19,7 @@ truncated-shifted ~1.09 and full-LJ ~1.31 values).  The T = 1.0 point
 is independently cross-checked against the Gibbs ensemble in
 docs/validation/tmmc_coexistence.txt.
 
-Run: `python docs/validation/run_lj_phase_diagram.py` (TPU, ~20 min).
+Run: `python docs/validation/run_lj_phase_diagram.py`.
 Writes docs/validation/lj_phase_diagram.txt.
 """
 
@@ -31,6 +31,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -141,7 +145,7 @@ def main():
     ok = mono and resid_ok and cover_ok and tc_ok and gamma_ok and ex_ok
 
     lines = [
-        "LJ vapor-liquid phase diagram from TMMC (TPU)",
+        "LJ vapor-liquid phase diagram from TMMC",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"model: cut LJ r_cut=2.5, no shift, no LRC; box={BOX} cap={CAP}",
         f"protocol: per T, {CHAINS} stratified walkers x 48-64 x{STEPS} "

@@ -1,4 +1,4 @@
-"""NPT density validation: SPC/E water at 298.15 K and 1 bar (TPU).
+"""NPT density validation: SPC/E water at 298.15 K and 1 bar.
 
 Absolute end-to-end physics check of the NPT path (ln-V volume moves +
 full-energy recompute + Ewald with box-dependent kappa/cfac/self): the
@@ -8,7 +8,7 @@ part of this framework was fitted to.  The reference never ran NPT (its
 volume-move code is dead pseudocode, `Ewald/volumeChange.jl:8-150`), so
 this is capability BEYOND the reference validated against nature.
 
-Run: `python docs/validation/run_npt_density.py` (TPU; ~6 min).
+Run: `python docs/validation/run_npt_density.py`.
 Writes docs/validation/npt_density.txt.
 """
 
@@ -20,6 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -80,7 +84,7 @@ def main():
         "SPC/E water NPT density validation",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: {N_MOL} waters x {N_CHAINS} chains, T = {T} K, "
-        f"P = 1 bar ({P_BAR:.4e} K/A^3), Ewald, f32, mega path "
+        f"P = 1 bar ({P_BAR:.4e} K/A^3), Ewald, f32, jnp path "
         f"+ ln-V volume moves",
         f"equil/production: {EQUIL_BLOCKS}/{PROD_BLOCKS} blocks x "
         f"{SWEEPS_PER_BLOCK} sweeps",

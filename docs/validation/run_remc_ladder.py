@@ -1,8 +1,8 @@
-"""REMC sampling validation on TPU: ladder averages vs independent NVT.
+"""REMC sampling validation: ladder averages vs independent NVT.
 
 Parallel tempering must not change single-temperature equilibrium
 averages — it only accelerates mixing.  This runs the SAME 64-replica
-LJ temperature ladder twice on the real chip (mega-kernel sweeps):
+LJ temperature ladder twice (sweeps):
 
   (a) REMC: exchange round (alternating even/odd phases) every sweep,
   (b) control: identical chains, never exchanged,
@@ -14,7 +14,7 @@ swap plumbing, and the per-temperature step-size bookkeeping at once.
 Reference anchor: REMC is the reference's own unimplemented TODO
 (`Ewald/main.jl:55`).
 
-Run: `python docs/validation/run_remc_ladder.py` (TPU, ~4 min).
+Run: `python docs/validation/run_remc_ladder.py`.
 Writes docs/validation/remc_ladder.txt.
 """
 
@@ -26,6 +26,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -86,7 +90,7 @@ def main():
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: N={N} rho={RHO}, {C} replicas T in [{T_LO}, {T_HI}], "
         f"{EQUIL} equil + {ROUNDS}x{SWEEPS} sweeps, exchange every "
-        f"{SWEEPS} sweeps (alternating phases), mega path, f32",
+        f"{SWEEPS} sweeps (alternating phases), jnp path, f32",
         f"swap fraction: {swap_frac:.3f} (must discriminate: in (0,1))",
         f"per-T energy difference REMC - NVT (per particle): "
         f"rms {rms:.4f}, worst {worst:.4f} (bounds 0.03 / 0.10)",

@@ -1,9 +1,9 @@
-"""MBAR temperature reweighting of a real REMC run on TPU.
+"""MBAR temperature reweighting of a real REMC run.
 
 One replica-exchange run should yield thermodynamics as CONTINUOUS
 functions of temperature, not just at the ladder rungs — that is the
 point of mc/mbar.reweight_temperature.  This runs a 64-replica LJ
-ladder on the real chip (mega-kernel sweeps, exchanges every round,
+ladder (sweeps, exchanges every round,
 slot temperatures fixed so slot k samples the T_k equilibrium), logs
 the per-slot energies each round, and gates the MBAR post-processing
 three ways:
@@ -19,7 +19,7 @@ three ways:
 Reference anchor: the reference has neither REMC (its own TODO,
 `Ewald/main.jl:55`) nor any reweighting machinery (SURVEY §2).
 
-Run: `python docs/validation/run_remc_mbar.py` (TPU, ~3 min).
+Run: `python docs/validation/run_remc_mbar.py`.
 Writes docs/validation/remc_mbar.txt.
 """
 
@@ -31,6 +31,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 from metropolismontecarlo_tpu.io.configs import cubic_lattice
@@ -104,11 +108,11 @@ def main():
           and ess_mid_min > 0.05 * n_pool and ess_far < 0.01 * n_pool
           and 0.0 < swap_frac < 1.0)
     lines = [
-        "MBAR temperature reweighting of a TPU REMC run (LJ fluid)",
+        "MBAR temperature reweighting of a REMC run (LJ fluid)",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: N={N} rho={RHO}, {C} rungs T in [{T_LO}, {T_HI}], "
         f"{EQUIL} equil + {ROUNDS}x{SWEEPS} sweeps, exchange every round, "
-        f"mega path f32; pooled samples {n_pool}",
+        f"jnp path f32; pooled samples {n_pool}",
         f"swap fraction: {swap_frac:.3f} (must discriminate: in (0,1))",
         f"(1) rung self-consistency: rms z-score {rms_z:.2f} (bound 3.0)",
         f"(2) C_v identity: median |Cv_mbar - d<E>/dT| / |d<E>/dT| "

@@ -1,4 +1,4 @@
-"""SPC/E static dielectric constant at 298.15 K (TPU).
+"""SPC/E static dielectric constant at 298.15 K.
 
 Absolute physics check of the dipole-fluctuation machinery
 (`observables.DipoleAccumulator` + Neumann tinfoil formula): the SPC/E
@@ -7,16 +7,16 @@ eps ~ 68-73 under conducting (tinfoil) boundaries (Reddy & Berkowitz,
 J. Chem. Phys. 90, 3483 (1989): 71; later long-run MD studies: 68-71;
 Kirkwood factor g_K follows from eps via eps - 1 = 3 y g_K).  Nothing in this framework was fitted
 to it, and the convergence is notoriously slow in serial runs — here
-the chain ensemble (many independent Markov chains pooled on one chip)
-is exactly the TPU-native answer: <M^2> converges with chains x
-samples, not wall-clock.
+the chain ensemble (many independent Markov chains pooled on one
+device) is exactly the data-parallel answer: <M^2> converges with
+chains x samples, not wall-clock.
 
-The reference (`/root/reference/Ewald`) has no dielectric machinery;
+The reference (`Ewald/`) has no dielectric machinery;
 its Ewald sums implicitly use tinfoil boundaries (no surface term,
 `ewalds.jl:836-844` disabled), which is the convention this number
 validates.
 
-Run: `python docs/validation/run_spce_dielectric.py` (TPU; ~15 min).
+Run: `python docs/validation/run_spce_dielectric.py`.
 Writes docs/validation/spce_dielectric.txt.
 """
 
@@ -28,6 +28,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -104,7 +108,7 @@ def main():
         "SPC/E static dielectric constant (tinfoil BC)",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: {N_MOL} waters x {N_CHAINS} chains, T = {T} K, "
-        f"rho = {RHO_G_CC} g/cc (NVT), Ewald, f32, mega path",
+        f"rho = {RHO_G_CC} g/cc (NVT), Ewald, f32, jnp path",
         f"equil/production: {EQUIL_BLOCKS}/{PROD_BLOCKS} blocks x "
         f"{SWEEPS_PER_BLOCK} sweeps, dipoles sampled once per block",
         f"samples: {res['n_samples']} (chains x blocks)",

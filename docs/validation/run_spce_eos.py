@@ -1,4 +1,4 @@
-"""SPC/E compressed-liquid equation of state in ONE run (TPU).
+"""SPC/E compressed-liquid equation of state in ONE run.
 
 The per-chain pressure ladder batches eight isobars (1 to 3000 bar at
 298.15 K) into a single compiled NPT program: 512 chains, 64 per
@@ -18,7 +18,7 @@ them absolute:
     fluctuation-dissipation check that ties the ensemble's second
     moments to its first-moment pressure response.
 
-Run: `python docs/validation/run_spce_eos.py` (TPU, ~20 min).
+Run: `python docs/validation/run_spce_eos.py`.
 Writes docs/validation/spce_eos.txt.
 """
 
@@ -30,6 +30,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -108,7 +112,7 @@ def main():
           and np.all(np.diff(rho_mean) > 0.0)
           and worst < 5e-5)
     lines = [
-        "SPC/E compressed-liquid EOS via a per-chain pressure ladder (TPU)",
+        "SPC/E compressed-liquid EOS via a per-chain pressure ladder",
         f"device: {dev.device_kind}, {n_chains} chains = "
         f"{len(P_BARS)} isobars x {CHAINS_PER_P}, one compiled program",
         f"protocol: {N_MOL} waters, {T} K, Ewald r_cut 9 A, "

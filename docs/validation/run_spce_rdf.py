@@ -1,9 +1,9 @@
 """Regenerate spce_oo_rdf_wolf_vs_ewald.txt: SPC/E 750-water O-O RDF,
 Ewald vs Wolf overlay (the reference's own cross-check,
-`/root/reference/Ewald/SPC_E water RDF - Wolf & Ewald.png`,
+`Ewald/SPC_E water RDF - Wolf & Ewald.png`,
 `Ewald/readme.md:30-32`).
 
-Run: `python docs/validation/run_spce_rdf.py` (TPU, ~6 min).
+Run: `python docs/validation/run_spce_rdf.py`.
 Writes docs/validation/spce_oo_rdf_wolf_vs_ewald.txt.
 """
 
@@ -14,6 +14,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -22,7 +26,7 @@ from metropolismontecarlo_tpu.models.system import RunParams
 from metropolismontecarlo_tpu.models.water import spce_from_nist
 from metropolismontecarlo_tpu.observables import RDFAccumulator
 
-REF = "/root/reference/Ewald/coord750.txt"
+REF = "Ewald/coord750.txt"
 CHAINS = 256
 EQUIL_SWEEPS = 10 * 20     # 10 blocks of 20 with step-size adjust
 PROD_SWEEPS = 120

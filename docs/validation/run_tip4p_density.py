@@ -1,15 +1,15 @@
-"""TIP4P/2005 NPT density validation: 298.15 K and 1 bar (TPU).
+"""TIP4P/2005 NPT density validation: 298.15 K and 1 bar.
 
 Absolute end-to-end physics check of the 4-site rigid water model
 (massless charged M site on the HOH bisector) through the FULL
-compiled stack: mega-kernel sweeps at P=4, ln-V volume moves, Ewald
+compiled stack: sweeps at P=4, ln-V volume moves, Ewald
 with box-dependent kappa/cfac/self.  TIP4P/2005's claim to fame is
 reproducing the ambient density of water almost exactly (0.9979 g/cc
 at 298 K / 1 bar, Abascal & Vega 2005, vs experiment 0.997) — a
 literature-pinned number no part of this framework was fitted to, and
 a sharper target than SPC/E's ~1.00.
 
-Run: `python docs/validation/run_tip4p_density.py` (TPU, ~6 min).
+Run: `python docs/validation/run_tip4p_density.py`.
 Writes docs/validation/tip4p_density.txt.
 """
 
@@ -21,6 +21,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -75,7 +79,7 @@ def main():
         "TIP4P/2005 water NPT density validation",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"protocol: {N_MOL} waters x {N_CHAINS} chains, T = {T} K, "
-        f"P = 1 bar ({P_BAR:.4e} K/A^3), Ewald, f32, mega path (P=4) "
+        f"P = 1 bar ({P_BAR:.4e} K/A^3), Ewald, f32, jnp path (P=4) "
         f"+ ln-V volume moves",
         f"equil/production: {EQUIL_BLOCKS}/{PROD_BLOCKS} blocks x "
         f"{SWEEPS_PER_BLOCK} sweeps",

@@ -1,4 +1,4 @@
-"""LJ vapor-liquid coexistence two ways on TPU: TMMC vs Gibbs ensemble.
+"""LJ vapor-liquid coexistence two ways: TMMC vs Gibbs ensemble.
 
 Transition-matrix MC (mc/tmmc.py) and the Gibbs ensemble (mc/gibbs.py)
 are COMPLETELY different algorithms — one reconstructs the macrostate
@@ -16,7 +16,7 @@ Also reported: beta mu at coexistence from ln z* (TMMC) vs the Gibbs
 boxes' Widom insertion averages — a chemical-potential consistency
 line across algorithms.
 
-Run: `python docs/validation/run_tmmc_coexistence.py` (TPU, ~8 min).
+Run: `python docs/validation/run_tmmc_coexistence.py`.
 Writes docs/validation/tmmc_coexistence.txt.
 """
 
@@ -28,6 +28,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -119,7 +123,7 @@ def main():
           and abs(bmu_tm - bmu_g_vap) < 0.25
           and tm_stats["visited_frac"] > 0.8)
     lines = [
-        "LJ vapor-liquid coexistence: TMMC vs Gibbs ensemble (TPU)",
+        "LJ vapor-liquid coexistence: TMMC vs Gibbs ensemble",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"model: cut LJ r_cut=2.5, no shift, no LRC, T={TEMP}",
         f"TMMC: box={BOX} cap={CAP} z0={Z0}, {TM_CHAINS} walkers x "

@@ -1,4 +1,4 @@
-"""SPC/E water vapor-liquid coexistence from molecular TMMC on TPU.
+"""SPC/E water vapor-liquid coexistence from molecular TMMC.
 
 Flat-histogram muVT for a rigid molecular fluid with full Ewald
 electrostatics: ONE transition-matrix run (mc/tmmc.TMMCMol — biased
@@ -8,7 +8,7 @@ density range at 500 K; the equal-basin-weight solve gives the
 saturation activity and both coexistence densities, and the barrier
 gives a Binder surface-tension estimate.  This is the Errington
 flat-histogram workflow applied to water — a capability far beyond the
-reference (NVT-only, `/root/reference/Ewald/main.jl`).
+reference (NVT-only, `Ewald/main.jl`).
 
 The sampled model is the framework's truncated one (r_cut = 6 A,
 kappa = 5.6/box, no LRC) in a 13 A box, so the numbers carry
@@ -22,7 +22,7 @@ starts blanket the N axis so every slice deposits from block 0; a 1/3
 burn-in discard removes the lattice-start pollution of the collection
 matrix; the prominence-guarded basin split resists noise dimples.
 
-Run: `python docs/validation/run_tmmc_water.py` (TPU, ~25 min).
+Run: `python docs/validation/run_tmmc_water.py`.
 Writes docs/validation/tmmc_water.txt.
 """
 
@@ -34,6 +34,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
 import jax
+
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -49,10 +53,8 @@ Z0 = 2e-4            # near the measured 500 K saturation activity
 CHAINS = 128
 BLOCKS, STEPS = 60, 2500
 EQUIL_BLOCKS = 10
-N_ORIENT = 1     # the in-kernel exchange path is unbiased;
-#   measured (docs/perf.md negative results): orientational
-#   bias buys no acceptance in the deep-rejection regime
-MEGA = "full"   # exchanges + deposits inside the Pallas kernel
+N_ORIENT = 1     # unbiased exchanges: orientational bias buys no
+#   acceptance in the deep-rejection regime (measured)
 G_CC = 18.01528 * 1.66053907  # (N/V A^-3) -> g/cc for water
 
 
@@ -72,7 +74,7 @@ def main():
     # relaxes (the Gibbs-water lesson), draining every liquid slice and
     # leaving the collection matrix nothing to measure there
     g = MolGCMC(sys_, params, activity=Z0, p_exchange=0.0,
-                dtype=jnp.float32, n_orient=1, mega=True)
+                dtype=jnp.float32, n_orient=1)
     st = g.init(jax.random.PRNGKey(11), box=BOX, n_init=n_init,
                 n_chains=CHAINS)
     for b in range(EQUIL_BLOCKS):
@@ -85,7 +87,7 @@ def main():
 
     # Phase 1: transition-matrix blocks (same state pytree)
     t = TMMCMol(sys_, params, activity=Z0, p_exchange=0.4,
-                dtype=jnp.float32, n_orient=N_ORIENT, mega=MEGA)
+                dtype=jnp.float32, n_orient=N_ORIENT)
     # drift gate note: acceptance never reads the carried energy — every
     # exchange uses FRESH pose energies plus the carried structure
     # factors (gated tight below); the carried-E drift is a pure f32
@@ -135,7 +137,7 @@ def main():
     ok_gamma = 2.0 < gamma_mnm < 60.0
     ok_resid = abs(res["dlnw"]) < 1e-6
     ok_cover = cover > 0.80
-    # 0.25: the mega path's kernel sweeps interleave with the biased
+    # 0.25: the sweeps interleave with the biased
     # walkers' whole-ladder N excursions (0 <-> ~75 waters per block =
     # ~150 exchange swings of O(2e3) K each); the f32 residue of that
     # traversal, endpoint-relative, measured 6.8e-2 on a healthy run —
@@ -145,14 +147,14 @@ def main():
           and ok_ext)
 
     lines = [
-        "SPC/E water vapor-liquid coexistence from molecular TMMC (TPU)",
+        "SPC/E water vapor-liquid coexistence from molecular TMMC",
         f"device: {dev.device_kind}, backend: {jax.default_backend()}",
         f"model: SPC/E, Ewald kappa=5.6/box nk=5, r_cut=6 A, no LRC; "
         f"box={BOX} A, cap={CAP}",
         f"protocol: T={T} K, {CHAINS} stratified walkers, "
         f"{EQUIL_BLOCKS}x{STEPS} fixed-N melt + {BLOCKS}x{STEPS} TM "
-        f"steps, n_orient={N_ORIENT}, mega={MEGA!r} (in-kernel "
-        f"exchanges + deposits), 1/4 burn-in discard, f32, z0={Z0}",
+        f"steps, n_orient={N_ORIENT}, 1/4 burn-in discard, f32, "
+        f"z0={Z0}",
         f"z* = {res['z_coex']:.4e} A^-3",
         f"rho_vap = {rho_v:.4f} g/cc   rho_liq = {rho_l:.4f} g/cc   "
         f"(SPC/E full-Ewald lit at 500 K: ~0.006 / ~0.83)",

@@ -1,16 +1,16 @@
-"""metropolismontecarlo_tpu — a TPU-native Metropolis Monte Carlo framework.
+"""metropolismontecarlo_tpu — a data-parallel Metropolis Monte Carlo framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 BradenDKelly/MetropolisMonteCarlo (serial Julia): NVT/NPT Metropolis MC of
 monatomic Lennard-Jones fluids, rigid polyatomic LJ molecules, and rigid
 water/polyatomics with bare-Coulomb / damped-Wolf / full-Ewald electrostatics.
 
-Architecture (TPU-first, not a port):
-  * many independent MC chains are the vectorized axis (vmap within a chip,
-    sharded over a `jax.sharding.Mesh` across chips),
+Architecture (accelerator-first, not a port):
+  * many independent MC chains are the vectorized axis (vmap within a
+    device, sharded over a `jax.sharding.Mesh` across devices),
   * within a chain the move loop is a `lax.scan`,
-  * per-move delta-energies are dense masked reductions (Pallas kernels on
-    the hot path) instead of the reference's early-exit scalar loops,
+  * per-move delta-energies are dense masked reductions that XLA fuses,
+    instead of the reference's early-exit scalar loops,
   * Ewald reciprocal state (structure factors) is carried scan state with
     O(K) incremental updates, and
   * accept/reject is branchless `jnp.where` selection.

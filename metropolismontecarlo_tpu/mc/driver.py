@@ -53,24 +53,13 @@ class MonteCarlo:
     """
 
     def __init__(self, system, params, dtype=jnp.float32,
-                 recompute_chunk="auto", pallas="auto", tp_mesh=None,
-                 pressure_ladder=None):
+                 recompute_chunk="auto", tp_mesh=None, pressure_ladder=None):
         """recompute_chunk: chains per step of the chunked full-energy
         recompute scan (drift checks, init, volume moves).  "auto"/None
         sizes it from a peak-memory model of the recompute path (dense
         O(A^2) below 4096 atoms, row-tiled O(256*A) above) against a
         fixed budget — small chunks bound memory but cost scan steps
         (init at 2048 chains with chunk 4 is a 512-step scan).
-
-        pallas: "auto" (on TPU: whole-sweep mega-kernel for species-
-        uniform systems — incl. ragged mixtures, one kernel call per
-        species block — else the per-move kernel), "mega"/"tpu"
-        (force those), "interpret"/"mega_interpret" (Pallas interpreter,
-        CPU testing), or False/None (pure-jnp path).
-
-        Note: the mega kernel uses the on-core TPU PRNG, a different (but
-        equally deterministic and resume-stable) random stream than the
-        jax.random-based paths.
 
         tp_mesh: a 2-D ("chains", "atoms") Mesh (parallel.tp.make_mesh_2d)
         routes every full-energy recompute (drift check, resync,
@@ -97,70 +86,15 @@ class MonteCarlo:
             )
         else:
             self.kvecs, self.kweights = None, None
-        # the Ewald surface (dipole) term lives on the jnp move path only
-        supported = (params.cutoff_mode == "site"
-                     and params.lj_shift == "none"
-                     and dtype == jnp.float32
-                     and not params.ewald_surface)
-        # the mega kernel additionally supports the linear (Mossa) shift;
-        # ragged mixtures qualify when each species block is internally
-        # uniform (one kernel call per block)
-        mega_ok = (params.cutoff_mode == "site" and dtype == jnp.float32
-                   and params.lj_shift in ("none", "linear")
-                   and not params.ewald_surface
-                   and system.species_uniform)
-        if params.nlist_width > 0:
-            if pallas not in ("auto", False, None):
-                raise ValueError(
-                    "neighbor lists run on the jnp move path; they cannot "
-                    "be combined with an explicitly requested Pallas mode")
-            # neighbor lists live in the jnp move path (per-chain gathers)
-            pallas_mode = None
-        elif pallas == "auto":
-            if jax.default_backend() == "tpu" and mega_ok:
-                pallas_mode = "mega"
-            elif supported and jax.default_backend() == "tpu":
-                pallas_mode = "tpu"
-            else:
-                pallas_mode = None
-        elif pallas in (True, "tpu"):
-            pallas_mode = "tpu"
-        elif pallas == "interpret":
-            pallas_mode = "interpret"
-        elif pallas in ("mega", "mega_interpret"):
-            pallas_mode = pallas
-        else:
-            pallas_mode = None
-        if pallas_mode in ("mega", "mega_interpret"):
-            if not mega_ok:
-                raise ValueError("mega sweep requires a species-uniform "
-                                 "system, site cutoff, none/linear LJ "
-                                 "shift, f32")
-        elif pallas_mode and not supported:
-            raise ValueError("Pallas path requires site cutoff, unshifted "
-                             "LJ, and float32")
-        self.pallas_mode = pallas_mode
-        self._sweep_full = None
-        self._slab_cfg = None
-        if pallas_mode in ("mega", "mega_interpret"):
-            from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-            # built WITHOUT sorted slabs here (no box known yet);
-            # init_state/init_from_coords re-build with the actual box so
-            # slab_config can size the windows (_maybe_slab_mega)
-            self._sweep_full = make_mega_sweep_fn(
-                system, params, self.kvecs, self.kweights,
-                interpret=(pallas_mode == "mega_interpret"))
-            self._sweep_moves = None
-        else:
-            # one sweep body per species block (a single block for uniform
-            # systems): each has static atom count/offset, so ragged
-            # mixtures pay per-move work proportional to THAT species'
-            # size, never the widest molecule's
-            self._sweep_moves = tuple(
-                (sl[1], sl[2],
-                 make_sweep_fn(system, params, self.kvecs, self.kweights,
-                               dtype, pallas_mode, species=sl))
-                for sl in system.species_slices)
+        # one sweep body per species block (a single block for uniform
+        # systems): each has static atom count/offset, so ragged mixtures
+        # pay per-move work proportional to THAT species' size, never the
+        # widest molecule's
+        self._sweep_moves = tuple(
+            (sl[1], sl[2],
+             make_sweep_fn(system, params, self.kvecs, self.kweights,
+                           dtype, species=sl))
+            for sl in system.species_slices)
         if pressure_ladder is not None and params.p_volume <= 0.0:
             raise ValueError(
                 "pressure_ladder requires params.p_volume > 0 — with no "
@@ -175,29 +109,6 @@ class MonteCarlo:
             and params.p_volume > 0.0
             else None
         )
-
-    def _maybe_slab_mega(self, box_hint, z_hint=None):
-        """Rebuild the mega sweep with sorted-slab windows sized for this
-        box + initial configuration, when profitable (mc.moves.
-        slab_config; no-op otherwise)."""
-        if self.pallas_mode not in ("mega", "mega_interpret"):
-            return
-        from metropolismontecarlo_tpu.mc.moves import (
-            make_mega_sweep_fn,
-            slab_config,
-        )
-        cfg = slab_config(self.system, self.params, box_hint, z_hint)
-        key = None if cfg is None else (cfg["W"], cfg["A_store"])
-        cur = None if self._slab_cfg is None else (
-            self._slab_cfg["W"], self._slab_cfg["A_store"])
-        if key == cur:
-            return
-        self._slab_cfg = cfg
-        self._sweep_full = make_mega_sweep_fn(
-            self.system, self.params, self.kvecs, self.kweights,
-            interpret=(self.pallas_mode == "mega_interpret"),
-            box_hint=box_hint if cfg is not None else None,
-            z_hint=z_hint)
 
     def _check_min_image(self, box):
         """r_cut <= box/2 or pair energies silently miss second images
@@ -217,15 +128,6 @@ class MonteCarlo:
                 raise ValueError(msg)
             import warnings
             warnings.warn(msg, stacklevel=3)
-
-    def retune_slabs(self, state):
-        """Re-size the sorted-slab windows from the CURRENT configuration
-        (e.g. after equilibrating away a lattice start, whose z-plane
-        clumps force conservative windows at init).  Recompiles the mega
-        sweep if the window width changes; resets the coverage counter."""
-        self._maybe_slab_mega(float(jnp.min(state.box)),
-                              np.asarray(state.com[0, :, 2], np.float64))
-        return state._replace(nbr_needed=jnp.zeros_like(state.nbr_needed))
 
     # ---------------- state construction ----------------
 
@@ -268,8 +170,6 @@ class MonteCarlo:
         box = jnp.asarray(box, self.dtype)
         box = jnp.broadcast_to(jnp.atleast_1d(box), (C,))
         self._check_min_image(box)
-        self._maybe_slab_mega(float(jnp.min(box)),
-                              np.asarray(com[0, :, 2], np.float64))
         coords = self.build_coords(com, quat)
         keys = jax.vmap(jax.random.fold_in, (None, 0))(key, jnp.arange(C))
         p = self.params
@@ -296,8 +196,6 @@ class MonteCarlo:
         actual geometry by a Kabsch fit against the body template, and the
         atoms are rebuilt as com + R(q) body so that state and move kernel
         agree exactly (exact for rigid configurations)."""
-        import numpy as np
-
         from metropolismontecarlo_tpu.ops.quaternions import fit_quaternions
 
         M = self.system.n_mol
@@ -316,7 +214,6 @@ class MonteCarlo:
         com = jnp.broadcast_to(jnp.asarray(com_np, self.dtype)[None], (C, M, 3))
         quat = jnp.broadcast_to(jnp.asarray(quat_np, self.dtype)[None], (C, M, 4))
         self._check_min_image(jnp.asarray(box_np))
-        self._maybe_slab_mega(box_np, com_np[:, 2])
         coords = self.build_coords(com, quat)
         box = jnp.broadcast_to(jnp.asarray(box, self.dtype)[None], (C,))
         keys = jax.vmap(jax.random.fold_in, (None, 0))(key, jnp.arange(C))
@@ -395,12 +292,8 @@ class MonteCarlo:
             # running max of required width, checked at block boundaries
             state = state._replace(
                 nbr=nbr, nbr_needed=jnp.maximum(state.nbr_needed, needed))
-        if self._sweep_full is not None:
-            state = self._sweep_full(state)
-        else:
-            for m0, m1, sweep_body in self._sweep_moves:
-                state, _ = jax.lax.scan(sweep_body, state,
-                                        jnp.arange(m0, m1))
+        for m0, m1, sweep_body in self._sweep_moves:
+            state, _ = jax.lax.scan(sweep_body, state, jnp.arange(m0, m1))
         if self._volume_move is not None:
             # deterministic volume-attempt cycle (see mc/npt.py docstring):
             # all chains attempt every round(1/p_volume) sweeps; lax.cond
@@ -427,12 +320,9 @@ class MonteCarlo:
                 p = self.params
                 # list exactness requires dr_max <= nlist_skin/2 (proposals
                 # are +-dr_max/2 per axis; see RunParams.nlist_width) — cap
-                # the controller so it cannot silently stale the lists;
-                # sorted-slab windows analogously need dr_max <= slab_skin
+                # the controller so it cannot silently stale the lists
                 dr_hi = state.box / 2.0 if p.nlist_width <= 0 else \
                     jnp.minimum(state.box / 2.0, p.nlist_skin / 2.0)
-                if self._slab_cfg is not None:
-                    dr_hi = jnp.minimum(dr_hi, p.slab_skin)
                 dr = adjust_dmax(state.dr_max, state.acc[:, 0], state.att[:, 0],
                                  p.move_accept, dr_hi)
                 dphi = adjust_dmax(state.dphi_max, state.acc[:, 1], state.att[:, 1],
@@ -514,38 +404,6 @@ class MonteCarlo:
         from metropolismontecarlo_tpu.mc.widom import mu_excess
         return {"boltzmann_mean": b, "mu_ex": mu_excess(b, state.temp)}
 
-    def widom_mega(self, state, seed=0, n_per_sweep=64):
-        """Kernel-speed Widom sampling: advance the state by ONE
-        whole-sweep mega-kernel sweep AND evaluate n_per_sweep ghost
-        insertions inside the same Pallas call (mc/widom.py
-        make_mega_widom_fn — requires the mega envelope and a
-        single-species system; TPU artifact docs/validation/
-        widom_kernel.txt).  Returns (state', dict) with widom()'s keys;
-        the sweep and the Boltzmann factors both use
-        params.temperature (the kernel path ignores per-chain temp).
-        seed: optional extra int32 stream offset — streams are
-        step-seeded and disjoint by default (see make_mega_widom_fn)."""
-        if self.pallas_mode not in ("mega", "mega_interpret"):
-            raise ValueError(
-                "widom_mega requires the mega-kernel path "
-                f"(pallas='mega' or 'mega_interpret'; this MonteCarlo "
-                f"was built with pallas_mode={self.pallas_mode!r}) — a "
-                "non-mega build would hand the Pallas kernel a state it "
-                "was not laid out for and fail deep inside lowering.  "
-                "Use MonteCarlo.widom() for the jnp path.")
-        key_n = int(n_per_sweep)
-        fn = getattr(self, "_widom_mega_fn", None)
-        if fn is None or self._widom_mega_n != key_n:
-            from metropolismontecarlo_tpu.mc.widom import make_mega_widom_fn
-            fn = self._widom_mega_fn = make_mega_widom_fn(
-                self.system, self.params, self.kvecs, self.kweights,
-                key_n, interpret=(self.pallas_mode == "mega_interpret"))
-            self._widom_mega_n = key_n
-        state2, b = fn(state, jnp.asarray(seed, jnp.int32))
-        from metropolismontecarlo_tpu.mc.widom import mu_excess
-        return state2, {"boltzmann_mean": b,
-                        "mu_ex": mu_excess(b, self.params.temperature)}
-
     def quench(self, state, n_steps=20, temp=1e-6):
         """Orientation/position descent: run sweeps at a near-zero
         temperature so only downhill moves are accepted — the vectorized
@@ -572,15 +430,6 @@ class MonteCarlo:
                     f"neighbor-list overflow: up to {needed} molecules fell "
                     f"within the list radius during this block but "
                     f"nlist_width={self.params.nlist_width}; increase it")
-        if self._slab_cfg is not None:
-            needed = int(jnp.max(state.nbr_needed))
-            if needed > self._slab_cfg["W"]:
-                raise RuntimeError(
-                    f"sorted-slab window overflow: a molecule's z-"
-                    f"neighborhood needed {needed} columns but the static "
-                    f"window is W={self._slab_cfg['W']}; density "
-                    f"fluctuations exceeded the sizing margin — set "
-                    f"MMC_SLAB_W higher or slab_mode='off'")
         metrics = {
             "energy_mean": float(jnp.mean(e)),
             "energy_min": float(jnp.min(e)),

@@ -37,7 +37,7 @@ estimate by several kJ/mol no matter how many samples are thrown at
 it.  The production answer is STAGED decoupling: `tag_last_molecule`
 builds (N+1)-molecule systems whose last molecule carries
 lambda-scaled LJ/charge interactions, each stage is sampled with the
-ordinary driver (the stages are real Systems, so the mega kernel, NPT,
+ordinary driver (the stages are real Systems, so NPT, neighbour lists and
 checkpoints all apply), `make_deletion_fn` on a stage's system yields
 U_lambda - U_rest for the cross-stage works, and
 `make_decoupled_insertion_fn` supplies Widom-style ghost samples of

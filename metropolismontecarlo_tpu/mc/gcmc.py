@@ -13,7 +13,7 @@ Adams 1975):
     insert:  min[1, z V / (N + 1) exp(-beta dU)]
     delete:  min[1, N / (z V)     exp(-beta dU)]
 
-TPU-native design: a FIXED capacity of molecule slots per chain with a
+Data-parallel design: a FIXED capacity of molecule slots per chain with a
 per-chain activity mask (static shapes — no dynamic N anywhere), moves
 batched over chains by vmap, the whole step loop a `lax.scan`, and
 accept/reject by where-selects only.  Slot selection among the N active
@@ -38,9 +38,8 @@ Model notes: cut (optionally linearly shifted) LJ only.  `use_lrc=True`
 the sampled potential: since it is QUADRATIC in N, every exchange delta
 is the closed form g*((N+dn)^2 - N^2) — affine in N — entering the
 insertion/deletion acceptance, the carried energy, and the dense
-recompute consistently (drift-gated), and riding the in-kernel exchange
-path's quadratic constant lane (`wc`).  The reference carries tail
-corrections only in NVT (`/root/reference/Ewald/energy.jl:514-614`);
+recompute consistently (drift-gated).  The reference carries tail
+corrections only in NVT (reference `Ewald/energy.jl:514-614`);
 here they extend to every fluctuating-N ensemble.  Exact anchor: the
 mean-field quadrature gate in tests/test_lrc_exchange.py.  Single
 species, P = 1 (`models/monatomic.lj_system`).
@@ -92,8 +91,7 @@ def make_slot_lj(system, params, capacity, dtype):
       nth_active(mask, n_idx) -> slot index of the (n_idx+1)-th True;
       lrc_g — None when LRC is off (LRC-off builds stay bit-identical),
           else box -> g with U_lrc = g N^2 (ops/tail.mol_tail_coeff);
-          exchange deltas are then g*((N+dn)^2 - N^2), affine in N, and
-          ride the exchange kernels' wc constant lane.
+          exchange deltas are then g*((N+dn)^2 - N^2), affine in N.
     """
     eps, sig2, lam1, lam2 = _lj_coeffs(system, params, dtype)
     rc2 = jnp.asarray(params.r_cut**2, dtype)
@@ -145,36 +143,8 @@ def make_slot_lj(system, params, capacity, dtype):
     return site_energy, full_energy_one, nth_active, lrc_g
 
 
-def capacity_system(system, cap):
-    """A cap-molecule copy of a single-species system (the template
-    molecule broadcast to every slot) — the System the activity-masked
-    kernel sweeps over when the app's capacity differs from the model's
-    n_mol."""
-    import dataclasses
-
-    def rep(a):
-        a = np.asarray(a)
-        return np.broadcast_to(a[:1], (cap,) + a.shape[1:]).copy()
-
-    return dataclasses.replace(
-        system, n_mol=cap, body=rep(system.body),
-        masses=rep(system.masses), charges=rep(system.charges),
-        type_ids=rep(system.type_ids), species=None)
-
-
-def make_gcmc(system, params, activity, capacity, dtype=jnp.float64,
-              mega=None):
+def make_gcmc(system, params, activity, capacity, dtype=jnp.float64):
     """Build the muVT step/energy functions.
-
-    mega (True or "interpret"): displacement sweeps through the
-    activity-masked whole-sweep kernel on a capacity-sized copy of the
-    system (quaternions are identity rows for point particles);
-    insert/delete attempts stay on the jnp path (recursive
-    p_translate=0 build).  Same composition contract as
-    mc/gcmc_mol.make_gcmc_mol; requires dtype=float32.  mega="full"
-    (or "interpret_full") runs the exchanges IN-KERNEL too — one
-    Pallas call per cycle, no jnp exchange scan (see
-    mc/gcmc_mol.make_gcmc_mol(mega="full") and docs/perf.md).
 
     activity: scalar, or a (n_chains,) ACTIVITY LADDER — each chain
     samples its own muVT ensemble (the grand-canonical analog of the
@@ -219,7 +189,7 @@ def make_gcmc(system, params, activity, capacity, dtype=jnp.float64,
         u_old = _site_energy(com, active, box, com[idx], idx)
 
         # displacement proposal (reference +-dr/2 convention);
-        # statically skipped in exchange-only builds (mega composition)
+        # statically skipped in exchange-only builds (p_translate = 0)
         move_on = p_t > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -259,8 +229,8 @@ def make_gcmc(system, params, activity, capacity, dtype=jnp.float64,
             e = e + jnp.where(ok_t, u_new - u_old, 0.0)
         com = com.at[slot].set(jnp.where(ok_i, pos_i, com[slot]))
         # activity updates are one-hot WHERE-SELECTS, never dynamic
-        # scatters: XLA:TPU was caught DROPPING a bool scatter here
-        # (utils/activity.py, docs/perf.md "TPU bool-scatter hazard")
+        # scatters: an XLA backend was caught DROPPING a bool scatter
+        # here (utils/activity.py)
         active = set_slot(active, slot, ok_i)
         active = clear_slot(active, idx, ok_d)
         e = e + jnp.where(ok_i, u_ins + dl_i, 0.0) \
@@ -291,121 +261,6 @@ def make_gcmc(system, params, activity, capacity, dtype=jnp.float64,
             state.acc, state.att, z_arr, n_steps)
         return GCMCState(out[0], out[1], out[2], out[3], out[4],
                          out[5], out[6])
-
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega GCMC requires dtype=float32 (the "
-                             "whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if p_t >= 1.0:
-            raise ValueError("mega GCMC needs p_translate < 1")
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-        import dataclasses as _dc
-
-        interp = mega in ("interpret", "interpret_full")
-        cap_sys = capacity_system(system, cap)
-        A_pad = cap_sys.n_atoms_padded
-
-        if mega in ("full", "interpret_full"):
-            # in-kernel exchanges: one Pallas call per cycle executes
-            # [cap displacement moves + x_per insertion/deletion
-            # attempts] — see mc/gcmc_mol.make_gcmc_mol(mega="full")
-            if p_t <= 0.0:
-                raise ValueError("mega='full' needs 0 < p_translate < 1")
-            x_per = max(1, int(round(cap * (1.0 - p_t) / p_t)))
-            sweep_x = make_mega_sweep_fn(
-                cap_sys, params, None, None, interpret=interp,
-                with_activity=True, n_exch=x_per)
-
-            def _cycle_full(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                quat_id = jnp.zeros((C, cap, 4), jnp.float32) \
-                    .at[..., 0].set(1.0)
-                coords = jnp.swapaxes(state.com, 1, 2).astype(jnp.float32)
-                coords = jnp.pad(coords, ((0, 0), (0, 0),
-                                          (0, A_pad - cap)))
-                sfac = jnp.zeros((C, 1, 2), jnp.float32)
-                zeros = jnp.zeros((C,), jnp.float32)
-                zc = jnp.broadcast_to(z_arr.astype(jnp.float32), (C,))
-                # LRC coefficient rides the kernel's quadratic-in-N
-                # constant (wc) lane; zero when LRC is off
-                wc_c = jax.vmap(_lrc_g)(state.box.astype(jnp.float32)) \
-                    if _lrc_g is not None else zeros
-                com, _, _, active, _, d_e, acc4, att4 = sweep_x(
-                    state.com.astype(jnp.float32), quat_id, coords,
-                    state.active, state.box.astype(jnp.float32), sfac,
-                    ck, jnp.zeros((), jnp.int32), zc, zeros, wc_c)
-                # acc4/att4 are [trans, rot, ins, del]; rot is empty
-                # for point particles — map to the (C, 3) counters
-                sel = jnp.asarray([0, 2, 3])
-                return state._replace(
-                    com=com, active=active,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + acc4[:, sel].astype(jnp.int32),
-                    att=state.att + att4[:, sel].astype(jnp.int32))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-
-                def cycle(st, _):
-                    return _cycle_full(st), None
-
-                state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-                return state
-
-        else:
-            sweep_act = make_mega_sweep_fn(
-                cap_sys, params, None, None,
-                interpret=interp, with_activity=True)
-            if p_t > 0.0:
-                _, run_x, _ = make_gcmc(
-                    system, _dc.replace(params, p_translate=0.0), activity,
-                    capacity, dtype)
-                x_per = max(1, int(round(cap * (1.0 - p_t) / p_t)))
-            else:
-                run_x, x_per = None, 0
-
-            def _sweep_state(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                quat_id = jnp.zeros((C, cap, 4), jnp.float32) \
-                    .at[..., 0].set(1.0)
-                coords = jnp.swapaxes(state.com, 1, 2).astype(jnp.float32)
-                coords = jnp.pad(coords, ((0, 0), (0, 0),
-                                          (0, A_pad - cap)))
-                sfac = jnp.zeros((C, 1, 2), jnp.float32)
-                com, _, _, _, d_e, acc2, att2 = sweep_act(
-                    state.com.astype(jnp.float32), quat_id, coords,
-                    state.active, state.box.astype(jnp.float32), sfac,
-                    ck, jnp.zeros((), jnp.int32))
-                pad = ((0, 0), (0, 2))   # [trans] -> + insert, delete cols
-                return state._replace(
-                    com=com, energy=state.energy + d_e, key=knext,
-                    acc=state.acc + jnp.pad(
-                        acc2[:, :1].astype(jnp.int32), pad),
-                    att=state.att + jnp.pad(
-                        att2[:, :1].astype(jnp.int32), pad))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-
-                def cycle(st, _):
-                    st = _sweep_state(st)
-                    if run_x is not None:
-                        st = run_x(st, x_per)
-                    return st, None
-
-                state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-                return state
 
     def init(key, box, n_init, n_chains):
         if n_init > cap:
@@ -494,11 +349,11 @@ class GCMC:
     """
 
     def __init__(self, system, params, activity, capacity,
-                 dtype=jnp.float64, mega=None):
+                 dtype=jnp.float64):
         self.params = params
         self.capacity = int(capacity)
         self._init, self.run_steps, self.full_energy = make_gcmc(
-            system, params, activity, capacity, dtype, mega=mega)
+            system, params, activity, capacity, dtype)
 
     def init(self, key, box, n_init, n_chains):
         return self._init(key, box, n_init, n_chains)

@@ -4,7 +4,7 @@ reservoirs at their own activities (mu_A mu_B V T).
 The adsorption/selectivity ensemble (mixed-gas uptake, binary phase
 behavior): extends the osmotic ensemble (`mc/gcmc_osmotic.py`, solute
 exchange in FIXED solvent) to full two-component muVT.  Neither the
-reference (NVT-only, `/root/reference/Ewald/main.jl`) nor the
+reference (NVT-only, `Ewald/main.jl`) nor the
 single-species muVT apps cover this; it composes the same machinery:
 
   * a TWO-species-block System (each block internally uniform; each
@@ -36,9 +36,7 @@ Exactness anchors (tests/test_gcmc_binary.py):
 
 Capacity truncation as in gcmc.py.  `use_lrc=True` adds the full
 two-species quadratic tail U_lrc = (8 pi/3V) sum_ss' N_s N_s' c_ss'
-(`ops/tail.mol_tail_coeff`) to the exchange constants and recompute;
-the in-kernel path carries the own-species term on the wc lane and the
-cross term through the live-count si fold (mc/moves.sweep_x lrc_cross).
+(`ops/tail.mol_tail_coeff`) to the exchange constants and recompute.
 """
 
 from functools import partial
@@ -288,7 +286,7 @@ def make_binary_slots(system, params, dtype=jnp.float64):
 
 
 def make_gcmc_binary(system, params, activities, p_exchange=0.4,
-                     dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                     dtype=jnp.float64, chunk=8, n_orient=1):
     """Build the binary-muVT step/energy functions.
 
     system: a System with EXACTLY two species blocks, each internally
@@ -296,19 +294,6 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
     full_energy); full_energy(state) -> (energy (C,), sfac (C, K, 2)).
     Exchange attempts split px equally over the four exchange types
     (insert/delete x species).
-
-    mega (True or "interpret"): displacement/rotation sweeps through
-    the activity-masked whole-sweep kernel — the species-blocked case
-    runs one kernel call per block, exactly like the NVT mixture path —
-    with the four exchange types on the jnp path (recursive
-    p_exchange=1 build).  Same composition contract as
-    mc/gcmc_mol.make_gcmc_mol; requires dtype=float32.
-
-    mega="full" (or "interpret_full"): BOTH species' exchanges run
-    IN-KERNEL, each appended to its own species block's kernel call
-    with the updated activity planes threaded between the two calls
-    (unbiased algorithm, n_orient=1; charge-neutral species).  See
-    mc/gcmc_mol.make_gcmc_mol(mega="full") and docs/perf.md.
     """
     ms = make_binary_slots(system, params, dtype)
     evs, caps, m0s, a0s, Ps = ms.evs, ms.caps, ms.m0s, ms.a0s, ms.Ps
@@ -367,9 +352,9 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
             u_sel * n_tot.astype(dtype)).astype(jnp.int32) + 1)
         is_a = idx < caps[0]
         com_i, quat_i = com[idx], quat[idx]
-        # statically skipped in exchange-only builds (the mega
-        # composition's jnp cycles): four pair grids + four structure-
-        # factor rows of pure waste when mt can never select 0/1
+        # statically skipped in exchange-only builds: four pair grids +
+        # four structure-factor rows of pure waste when mt can never
+        # select 0/1
         move_on = p_disp + p_rot > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -510,7 +495,7 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
             coords = write_pose(coords, a0s[s] + i_s["slot"] * Ps[s],
                                 Ps[s], i_s["ra"], ok_i[s])
             # one-hot where-selects, never bool scatters
-            # (utils/activity.py: the TPU bool-scatter hazard)
+            # (utils/activity.py: the bool-scatter hazard)
             act = set_slot(actives[s], i_s["slot"], ok_i[s])
             act = clear_slot(act, d_s["slot"], ok_d[s])
             new_actives.append(act)
@@ -549,127 +534,6 @@ def make_gcmc_binary(system, params, activities, p_exchange=0.4,
             state.active1, state.box, state.sfac, state.energy,
             state.key, state.acc, state.att, n_steps)
         return BinaryGCMCState(*out)
-
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega binary GCMC requires dtype=float32 "
-                             "(the whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if px >= 1.0:
-            raise ValueError("mega binary GCMC needs p_exchange < 1")
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        interp = mega in ("interpret", "interpret_full")
-        if mega in ("full", "interpret_full"):
-            # both species' exchanges run IN-KERNEL, appended to their
-            # own species-block kernel call (the jnp path splits
-            # exchange attempts 0.25*px per species-direction, i.e.
-            # x_per/2 attempts per species per M moves — reproduced
-            # here as a deterministic per-block count)
-            if not 0.0 < px < 1.0:
-                raise ValueError("mega='full' needs 0 < p_exchange < 1")
-            if n_or != 1:
-                raise ValueError("in-kernel exchanges run the unbiased "
-                                 "algorithm (n_orient=1); use mega=True "
-                                 "for Rosenbluth-biased exchanges")
-            if any(abs(ev.q_t_tot) > 1e-5 for ev in evs):
-                raise ValueError("in-kernel binary exchanges require "
-                                 "charge-neutral species (the global "
-                                 "charge term couples the two counts)")
-            x_half = max(1, int(round(M * px / (1.0 - px) / 2.0)))
-            x_per = 2 * x_half
-            sweep_x = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True, n_exch=(x_half, x_half))
-
-            def _cycle_full(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                active = jnp.concatenate([state.active0, state.active1],
-                                         axis=1)
-                z_b = tuple(jnp.broadcast_to(z, (C,)) for z in zs)
-                si_b = tuple(jax.vmap(ev.self_intra)(state.box)
-                             for ev in evs)
-                if ms.use_lrc:
-                    # own-species tail term rides the wc quadratic lane;
-                    # the cross term folds into si from the LIVE other-
-                    # species count inside sweep_x (moves.py lrc_cross)
-                    g_c = jax.vmap(ms.lrc_gmat)(state.box)     # (C, 2, 2)
-                    wc_b = (g_c[:, 0, 0], g_c[:, 1, 1])
-                    lrc_cross = (g_c[:, 0, 1], g_c[:, 1, 0])
-                else:
-                    wc_b = (jnp.zeros((C,), jnp.float32),) * 2
-                    lrc_cross = None
-                out = sweep_x(state.com, state.quat, state.coords,
-                              active, state.box, state.sfac, ck,
-                              jnp.zeros((), jnp.int32), z_b, si_b, wc_b,
-                              lrc_cross=lrc_cross)
-                (com, quat, coords, active_o, sfac_o, d_e, acc6,
-                 att6) = out
-                return state._replace(
-                    com=com, quat=quat, coords=coords,
-                    active0=active_o[:, :caps[0]],
-                    active1=active_o[:, caps[0]:],
-                    sfac=sfac_o if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + acc6.astype(jnp.int32),
-                    att=state.att + att6.astype(jnp.int32))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-                def cycle(st, _):
-                    return _cycle_full(st), None
-
-                state, _ = jax.lax.scan(cycle, state, None,
-                                        length=n_cyc)
-                return state
-        else:
-            sweep_act = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True)
-            if px > 0.0:
-                _, run_x, _ = make_gcmc_binary(system, params,
-                                               activities, 1.0, dtype,
-                                               chunk, n_orient)
-                x_per = max(1, int(round(M * px / (1.0 - px))))
-            else:
-                run_x, x_per = None, 0
-
-            def _sweep_state(state):
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                active = jnp.concatenate([state.active0, state.active1],
-                                         axis=1)                  # (C, M)
-                com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                    state.com, state.quat, state.coords, active,
-                    state.box, state.sfac, ck, jnp.zeros((), jnp.int32))
-                pad = ((0, 0), (0, 4))   # [trans, rot] -> + 4 exchange cols
-                return state._replace(
-                    com=com, quat=quat, coords=coords,
-                    sfac=sfac if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + jnp.pad(acc2.astype(jnp.int32), pad),
-                    att=state.att + jnp.pad(att2.astype(jnp.int32), pad))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-                def cycle(st, _):
-                    st = _sweep_state(st)
-                    if run_x is not None:
-                        st = run_x(st, x_per)
-                    return st, None
-
-                state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-                return state
 
     def init(key, box, n_init, n_chains):
         """Lattice placement of ALL M slots; n_init = (n0, n1) — the
@@ -714,11 +578,11 @@ class BinaryGCMC:
     """
 
     def __init__(self, system, params, activities, p_exchange=0.4,
-                 dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                 dtype=jnp.float64, chunk=8, n_orient=1):
         self.params = params
         self._init, self.run_steps, self.full_energy = make_gcmc_binary(
             system, params, activities, p_exchange, dtype, chunk,
-            n_orient, mega=mega)
+            n_orient)
         sl = system.species_slices
         self.capacities = (sl[0][2] - sl[0][1], sl[1][2] - sl[1][1])
         self._system = system

@@ -2,7 +2,7 @@
 
 Extends the monatomic muVT app (`mc/gcmc.py`) to rigid polyatomics —
 orientational insertions and full electrostatics — which neither the
-reference (NVT-only, `/root/reference/Ewald/main.jl`) nor most teaching
+reference (NVT-only, `Ewald/main.jl`) nor most teaching
 codes attempt.  Moves: displacement, rotation, insertion at a uniform
 position AND uniform orientation, deletion.  Acceptance (Frenkel & Smit
 ch. 5; the uniform-orientation measure cancels, so the rotational
@@ -13,7 +13,7 @@ partition function is absorbed into the activity):
 
 with z = exp(beta mu_total) including all internal/kinetic factors.
 
-TPU-native design mirrors gcmc.py: FIXED capacity of molecule slots
+The data-parallel design mirrors gcmc.py: FIXED capacity of molecule slots
 (static shapes), a per-chain activity mask, one attempt per `lax.scan`
 step batched over chains by vmap, accept/reject by where-selects, and
 slot selection by cumsum/argmax over the mask.  The energy model is
@@ -24,7 +24,7 @@ insertion energies are one implementation.
 
 Electrostatics: per-chain Ewald structure factors are carried state,
 updated O(P K) per accepted move exactly as the NVT move path does
-(`/root/reference/Ewald/ewalds.jl:718-826`); insertion adds the pose's
+(reference `Ewald/ewalds.jl:718-826`); insertion adds the pose's
 structure-factor row, deletion subtracts it, and the per-molecule
 self + intramolecular constant enters only exchange moves (it cancels
 in displacements/rotations).  Molecules must be charge-neutral under
@@ -45,8 +45,8 @@ Exactness anchors (tests/test_gcmc_mol.py):
 
 Capacity truncation as in gcmc.py.  `use_lrc=True` (unshifted LJ only)
 adds the species-level tail U_lrc = g(box) N^2 (`ops/tail.
-mol_tail_coeff`) to the exchange constants, the dense recompute, and
-the in-kernel exchange path's quadratic constant lane — see mc/gcmc.py.
+mol_tail_coeff`) to the exchange constants and the dense recompute —
+see mc/gcmc.py.
 """
 
 from functools import partial
@@ -255,7 +255,7 @@ def make_mol_slots(system, params, dtype=jnp.float64):
 
 def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                   dtype=jnp.float64, chunk=8, n_orient=1,
-                  bias="orientation", tmmc=False, mega=None):
+                  bias="orientation", tmmc=False):
     """Build the molecular-muVT step/energy functions.
 
     tmmc=True builds the TRANSITION-MATRIX variant (see mc/tmmc.py for
@@ -286,7 +286,7 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
     orientations at the molecule's COM.  Exact — n_orient only changes
     acceptance rates (large gains for strongly anisotropic molecules in
     dense phases), never the sampled distribution; n_orient = 1 is the
-    unbiased algorithm.  TPU-native: the k trials are ONE batched
+    unbiased algorithm.  The k trials are ONE batched
     (k, P, A_pad) pair-grid + (k, K) structure-factor evaluation.
 
     bias="pose" widens the trials from k orientations at ONE position
@@ -295,43 +295,11 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
     The trial proposal density stays uniform per trial, so the W/k
     acceptance rule is unchanged and exactness is inherited (gated by
     the bias="pose" k=1-vs-k=8 ensemble-equality test).  Scope note
-    (measured, dense SPC/E on TPU): in the deep-rejection regime the
+    (dense SPC/E): in the deep-rejection regime the
     acceptance RATE is c*E[W] regardless of trial correlation, so pose
     and orientation bias perform identically there; k-trial averaging
     of either kind only raises acceptance where single-trial Boltzmann
     factors saturate the Metropolis cap (Jensen on the concave min).
-
-    mega (True or "interpret"): route the displacement/rotation
-    fraction of the sampling through the whole-sweep Pallas mega
-    kernel (`mc/moves.make_mega_sweep_fn(with_activity=True)`) — the
-    same kernel that gives the NVT flagship its throughput — keeping
-    exchanges on the jnp path.
-
-    mega="full" (or "interpret_full"): run the EXCHANGES in-kernel
-    too — one Pallas call per cycle executes [cap displacement/
-    rotation moves + x_per unbiased insertion/deletion attempts] with
-    the whole chain state (coordinates, activity masks, structure
-    factors, PRNG) resident in VMEM, eliminating the jnp exchange
-    scan that dominates the hybrid path's wall time (~95% measured,
-    docs/perf.md).  Requires n_orient=1/bias="orientation" (the
-    kernel runs the unbiased algorithm) and 0 < p_exchange < 1; the
-    TMMC variant deposits both Rao-Blackwellized pa's in-kernel with
-    eta entering acceptance thresholds only, so eta=0 stays
-    bit-identical to the plain "full" build (gated).  run_steps keeps its signature and its
-    n_steps ≈ attempts budget, but executes it as CYCLES of [one
-    activity-masked kernel sweep (cap displacement/rotation attempts,
-    inactive slots are null moves) + x_per jnp exchange-only attempts]
-    with x_per sized so the exchange : move mix matches p_exchange.
-    Deterministic alternation of two reversible kernels samples the
-    same muVT distribution; the kernel path requires dtype=float32, a
-    uniform system, site cutoff, and p_translate < 1 semantics as in
-    the NVT mega path.  "interpret" runs the kernel in the Pallas
-    interpreter (CPU tests; note interpret-mode PRNG returns zeros, so
-    only the energy/structure-factor bookkeeping — the drift gate — is
-    meaningful there).  TMMC composes the same way: the exchange-only
-    steps deposit the collection matrix with the exchange-type
-    probability 0.5 folded in; a constant proposal-mix factor cancels
-    in every lnPi ratio, so the TM estimate is unchanged (gated).
     """
     ms = make_mol_slots(system, params, dtype)
     ev, P, cap = ms.ev, ms.P, ms.cap
@@ -388,9 +356,8 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
         e_old, _ = ev.pair_energy(com_i, ra_old, coords, com, box, a_ok, idx)
 
         # --- displaced / rotated pose (statically skipped in exchange-
-        # only builds — the mega composition's jnp cycles; the second
-        # pair grid and second structure-factor row are pure waste when
-        # mt can never select 0/1)
+        # only builds: the second pair grid and second structure-factor
+        # row are pure waste when mt can never select 0/1)
         move_on = p_disp + p_rot > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -522,7 +489,7 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
         quat = quat.at[slot].set(jnp.where(ok_i, quat_ins, quat[slot]))
         coords = write_pose(coords, slot, ra_ins, ok_i)
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot(active, slot, ok_i)
         active = clear_slot(active, idx, ok_d)
         sfac = sfac \
@@ -586,169 +553,6 @@ def make_gcmc_mol(system, params, activity, p_exchange=0.3,
                 state.acc, state.att, _z_of(state), n_steps)
             return MolGCMCState(*out[:10])
 
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega GCMC requires dtype=float32 (the "
-                             "whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        interp = mega in ("interpret", "interpret_full")
-        if mega in ("full", "interpret_full"):
-            # FULLY in-kernel cycles: one Pallas call runs [cap
-            # displacement/rotation moves + x_per exchange attempts]
-            # with the whole chain state resident in VMEM — no jnp
-            # exchange scan at all (the hybrid path's dominant cost).
-            if not 0.0 < px < 1.0:
-                raise ValueError("mega='full' needs 0 < p_exchange < 1 "
-                                 "(the kernel cycle mixes moves and "
-                                 "exchanges)")
-            if n_or != 1 or pose_bias:
-                raise ValueError("in-kernel exchanges run the unbiased "
-                                 "algorithm (n_orient=1, bias="
-                                 "'orientation'); use mega=True for "
-                                 "Rosenbluth-biased exchanges")
-            x_per = max(1, int(round(cap * px / (1.0 - px))))
-            sweep_x = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True, n_exch=x_per, tmmc_exch=tmmc)
-
-            def _cycle_full(state, eta=None):
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                si_c = jax.vmap(ev.self_intra)(state.box)
-                if ms.q_t2 != 0.0:
-                    wc_c = jax.vmap(ev.wolf_const_coeff)(state.box) \
-                        * ms.q_t2
-                else:
-                    wc_c = jnp.zeros_like(state.box)
-                if ev.use_lrc:
-                    # LRC rides the kernel's quadratic-in-N constant
-                    # lane: du_exch = ... + wc_c*(2n +- 1) is exactly
-                    # g*((N+dn)^2 - N^2) for dn = +-1
-                    wc_c = wc_c + jax.vmap(ev.lrc_self_coeff)(state.box)
-                out = sweep_x(state.com, state.quat, state.coords,
-                              state.active, state.box, state.sfac, ck,
-                              jnp.zeros((), jnp.int32), _z_of(state),
-                              si_c, wc_c,
-                              energy=state.energy if tmmc else None,
-                              eta=eta)
-                com, quat, coords, active, sfac_o, d_e, acc4, att4 = out[:8]
-                st = state._replace(
-                    com=com, quat=quat, coords=coords, active=active,
-                    sfac=sfac_o if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + acc4.astype(jnp.int32),
-                    att=state.att + att4.astype(jnp.int32))
-                if tmmc:
-                    return st, out[8], out[9]
-                return st
-
-            if tmmc:
-                @partial(jax.jit, static_argnums=2)
-                def run_steps(state, eta, n_steps):  # noqa: F811
-                    n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                    eta_j = jnp.asarray(eta, dtype)
-
-                    def cycle(carry, _):
-                        st, cmat, uhist = carry
-                        st, cm, uh = _cycle_full(st, eta_j)
-                        return (st, cmat + cm, uhist + uh), None
-
-                    zeros = jnp.zeros(
-                        (state.com.shape[0], cap + 1, 3), dtype)
-                    (state, cmat, uhist), _ = jax.lax.scan(
-                        cycle, (state, zeros, zeros), None, length=n_cyc)
-                    return state, cmat, uhist
-            else:
-                @partial(jax.jit, static_argnums=1)
-                def run_steps(state, n_steps):       # noqa: F811
-                    n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-
-                    def cycle(st, _):
-                        return _cycle_full(st), None
-
-                    state, _ = jax.lax.scan(cycle, state, None,
-                                            length=n_cyc)
-                    return state
-
-        else:
-            sweep_act = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True)
-            # exchange-only jnp sampler (same machinery, p_exchange=1), and
-            # the cycle mix: one kernel sweep = cap displacement/rotation
-            # attempts, so x_per exchanges per sweep keeps the attempt mix
-            # at p_exchange : (1 - p_exchange)
-            if px >= 1.0:
-                raise ValueError("mega GCMC needs p_exchange < 1 (otherwise "
-                                 "there is no displacement work to kernelize)")
-            if px > 0.0:
-                _, run_x, _ = make_gcmc_mol(system, params, activity, 1.0,
-                                            dtype, chunk, n_orient, bias, tmmc)
-                x_per = max(1, int(round(cap * px / (1.0 - px))))
-            else:
-                # p_exchange = 0: pure displacement/rotation sampling (the
-                # TMMC melt phase / pre-equilibration) — kernel sweeps only
-                run_x, x_per = None, 0
-
-            def _sweep_state(state):
-                """One activity-masked kernel sweep folded into the state:
-                fresh per-chain subkeys drive the kernel's counter PRNG (a
-                different-but-deterministic stream vs the jnp path, same
-                contract as the NVT mega kernel)."""
-                keys2 = jax.vmap(jax.random.split)(state.key)    # (C, 2, 2)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                    state.com, state.quat, state.coords, state.active,
-                    state.box, state.sfac, ck, jnp.zeros((), jnp.int32))
-                pad24 = ((0, 0), (0, 2))
-                return state._replace(
-                    com=com, quat=quat, coords=coords,
-                    sfac=sfac if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + jnp.pad(acc2.astype(jnp.int32), pad24),
-                    att=state.att + jnp.pad(att2.astype(jnp.int32), pad24))
-
-            if tmmc:
-                if run_x is None:
-                    raise ValueError("mega TMMC needs p_exchange > 0 (melt "
-                                     "phases use a tmmc=False build)")
-
-                @partial(jax.jit, static_argnums=2)
-                def run_steps(state, eta, n_steps):   # noqa: F811
-                    n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                    eta = jnp.asarray(eta, dtype)
-
-                    def cycle(carry, _):
-                        st, cmat, uhist = carry
-                        st = _sweep_state(st)
-                        st, cm, uh = run_x(st, eta, x_per)
-                        return (st, cmat + cm, uhist + uh), None
-
-                    zeros = jnp.zeros(
-                        (state.com.shape[0], cap + 1, 3), dtype)
-                    (state, cmat, uhist), _ = jax.lax.scan(
-                        cycle, (state, zeros, zeros), None, length=n_cyc)
-                    return state, cmat, uhist
-            else:
-                @partial(jax.jit, static_argnums=1)
-                def run_steps(state, n_steps):        # noqa: F811
-                    n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-
-                    def cycle(st, _):
-                        st = _sweep_state(st)
-                        if run_x is not None:
-                            st = run_x(st, x_per)
-                        return st, None
-
-                    state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-                    return state
-
     def init(key, box, n_init, n_chains):
         """n_init: scalar, or (n_chains,) per-chain STRATIFIED starts
         (see mc/tmmc.py — blanket the N axis so the collection matrix
@@ -796,13 +600,13 @@ class MolGCMC:
 
     def __init__(self, system, params, activity, p_exchange=0.3,
                  dtype=jnp.float64, chunk=8, n_orient=1,
-                 bias="orientation", mega=None):
+                 bias="orientation"):
         self.params = params
         self.capacity = system.n_mol
         self._system = system
         self._init, self.run_steps, self.full_energy = make_gcmc_mol(
             system, params, activity, p_exchange, dtype, chunk, n_orient,
-            bias, mega=mega)
+            bias)
 
     def init(self, key, box, n_init, n_chains):
         return self._init(key, box, n_init, n_chains)

@@ -65,23 +65,13 @@ class OsmoticState(NamedTuple):
 
 
 def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
-                      dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                      dtype=jnp.float64, chunk=8, n_orient=1):
     """Build the osmotic-ensemble step/energy functions.
 
     system: a System with EXACTLY two species blocks — (solvent, count
     Ns) then (solute, capacity) — each internally uniform (one
     body/charge/type template per block, the from_topology convention).
     Returns (init, run_steps, full_energy) shaped as in gcmc_mol.
-
-    mega (True or "interpret"): displacement/rotation sweeps (solvent
-    AND solutes) through the species-blocked activity-masked kernel —
-    solvent columns always active — with solute exchanges on the jnp
-    path (recursive p_exchange=1 build).  Same composition contract as
-    mc/gcmc_mol; requires dtype=float32.  mega="full" (or
-    "interpret_full"): solute exchanges run IN-KERNEL, appended to the
-    solute block's kernel call (n_exch=(0, x_per); unbiased algorithm,
-    n_orient=1; charge-neutral solute) — see mc/gcmc_mol and
-    docs/perf.md for the throughput story.
     """
     slices = system.species_slices
     if len(slices) != 2:
@@ -231,7 +221,7 @@ def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
             cf = None
 
         # --- old/new pose energies for BOTH species, where-selected
-        # (statically skipped in exchange-only builds — mega cycles) ----
+        # (statically skipped in exchange-only builds) -----------------
         move_on = p_disp + p_rot > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -359,7 +349,7 @@ def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
                                                 quat[ns + slot]))
         coords = write_pose(coords, solute_a0(slot), P1, ra_ins, ok_i)
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot(active, slot, ok_i)
         active = clear_slot(active, slot_del, ok_d)
         sfac = sfac + jnp.where(ok_i, 1.0, 0.0) * s_ins \
@@ -431,124 +421,6 @@ def make_gcmc_osmotic(system, params, activity, p_exchange=0.3,
             n_steps)
         return OsmoticState(*out)
 
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega osmotic GCMC requires dtype=float32 "
-                             "(the whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if px >= 1.0:
-            raise ValueError("mega osmotic GCMC needs p_exchange < 1")
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        interp = mega in ("interpret", "interpret_full")
-        if mega in ("full", "interpret_full"):
-            # solute exchanges run IN-KERNEL, appended to the SOLUTE
-            # block's kernel call only (n_exch = (0, x_per)); the
-            # solvent block stays a pure displacement sweep
-            if not 0.0 < px < 1.0:
-                raise ValueError("mega='full' needs 0 < p_exchange < 1")
-            if n_or != 1:
-                raise ValueError("in-kernel exchanges run the unbiased "
-                                 "algorithm (n_orient=1); use mega=True "
-                                 "for Rosenbluth-biased exchanges")
-            if q_t2 != 0.0:
-                raise ValueError("in-kernel osmotic exchanges require a "
-                                 "charge-neutral solute (the global "
-                                 "charge term couples to the solvent)")
-            x_per = max(1, int(round(M * px / (1.0 - px))))
-            sweep_x = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True, n_exch=(0, x_per))
-
-            def _cycle_full(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                act_full = jnp.concatenate(
-                    [jnp.ones((C, ns), bool), state.active], axis=1)
-                zeros = jnp.zeros((C,), jnp.float32)
-                zc = jnp.broadcast_to(z.astype(jnp.float32), (C,))
-                si1 = jax.vmap(ev1.self_intra)(state.box)
-                if use_lrc:
-                    # solute-solute tail on the wc quadratic lane; the
-                    # solvent cross term 2 g_uv ns is a CONSTANT (fixed
-                    # solvent count) folded into the si lane directly
-                    si1 = si1 + 2.0 * float(ns) \
-                        * jax.vmap(lambda b: lrc_g(b, c_uv))(state.box)
-                    wc1 = jax.vmap(lambda b: lrc_g(b, c_uu))(state.box)
-                else:
-                    wc1 = zeros
-                out = sweep_x(state.com, state.quat, state.coords,
-                              act_full, state.box, state.sfac, ck,
-                              jnp.zeros((), jnp.int32),
-                              (zeros, zc), (zeros, si1), (zeros, wc1))
-                (com, quat, coords, active_o, sfac_o, d_e, acc6,
-                 att6) = out
-                sel = jnp.asarray([0, 1, 4, 5])   # [tr, rot, ins1, del1]
-                return state._replace(
-                    com=com, quat=quat, coords=coords,
-                    active=active_o[:, ns:],
-                    sfac=sfac_o if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + acc6[:, sel].astype(jnp.int32),
-                    att=state.att + att6[:, sel].astype(jnp.int32))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-                def cycle(st, _):
-                    return _cycle_full(st), None
-
-                state, _ = jax.lax.scan(cycle, state, None,
-                                        length=n_cyc)
-                return state
-
-        else:
-            sweep_act = make_mega_sweep_fn(
-                system, params, kv, kw, interpret=interp,
-                with_activity=True)
-            if px > 0.0:
-                run_x = make_gcmc_osmotic(system, params, activity, 1.0,
-                                          dtype, chunk, n_orient)[1]
-                x_per = max(1, int(round(M * px / (1.0 - px))))
-            else:
-                run_x, x_per = None, 0
-
-            def _sweep_state(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                act_full = jnp.concatenate(
-                    [jnp.ones((C, ns), bool), state.active], axis=1)
-                com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                    state.com, state.quat, state.coords, act_full,
-                    state.box, state.sfac, ck, jnp.zeros((), jnp.int32))
-                pad = ((0, 0), (0, 2))
-                return state._replace(
-                    com=com, quat=quat, coords=coords,
-                    sfac=sfac if use_ewald else state.sfac,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + jnp.pad(acc2.astype(jnp.int32), pad),
-                    att=state.att + jnp.pad(att2.astype(jnp.int32), pad))
-
-            @partial(jax.jit, static_argnums=1)
-            def run_steps(state, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-                def cycle(st, _):
-                    st = _sweep_state(st)
-                    if run_x is not None:
-                        st = run_x(st, x_per)
-                    return st, None
-
-                state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-                return state
-
     def init(key, box, n_init, n_chains):
         """Lattice placement of ALL M = ns + cap molecule sites; the
         first n_init solute slots start active."""
@@ -600,11 +472,10 @@ class OsmoticGCMC:
     """
 
     def __init__(self, system, params, activity, p_exchange=0.3,
-                 dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                 dtype=jnp.float64, chunk=8, n_orient=1):
         self.params = params
         self._init, self.run_steps, self.full_energy = make_gcmc_osmotic(
-            system, params, activity, p_exchange, dtype, chunk, n_orient,
-            mega=mega)
+            system, params, activity, p_exchange, dtype, chunk, n_orient)
         self.capacity = system.species_slices[1][2] \
             - system.species_slices[1][1]
         self.n_solvent = system.species_slices[0][2] \

@@ -14,7 +14,7 @@ energy.  Moves and acceptance rules:
         insert at a uniform position of box d,
         min[1, N_s V_d / ((N_d + 1) V_s) exp(-beta dU)].
 
-TPU-native design, shared with the muVT app (`mc/gcmc.py:make_slot_lj`):
+Data-parallel design, shared with the muVT app (`mc/gcmc.py:make_slot_lj`):
 fixed capacity slots per box with activity masks (static shapes), the
 step loop one `lax.scan` vmapped over chains, where-select acceptance.
 Volume moves recompute both boxes' energies densely (the same
@@ -54,18 +54,11 @@ class GibbsState(NamedTuple):
     att: jnp.ndarray       # (C, 3) attempted
 
 
-def make_gibbs(system, params, capacity, dv_max=0.05, dtype=jnp.float64,
-               mega=None):
+def make_gibbs(system, params, capacity, dv_max=0.05, dtype=jnp.float64):
     """Build the Gibbs-ensemble step/energy functions.
 
     dv_max: volume-transfer half-width as a fraction of TOTAL volume.
     Returns (init, run_steps, full_energy); see `GibbsEnsemble`.
-
-    mega (True or "interpret"): displacement sweeps through the
-    activity-masked kernel with the two boxes folded over the chain
-    axis (capacity-sized system copy, identity quaternions); transfers
-    + volume exchanges on the jnp path (recursive p_translate=0 build,
-    p_volume rescaled).  Requires dtype=float32.
     """
     beta = jnp.asarray(1.0 / params.temperature, dtype)
     p_t = float(params.p_translate)
@@ -106,7 +99,7 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=jnp.float64,
                            jnp.floor(u_sel * n[b]).astype(jnp.int32))
         u_old_b = site_energy(com[b], active[b], box[b], com[b, idx_b],
                               idx_b)
-        # statically skipped in transfer-only builds (mega cycles);
+        # statically skipped in transfer-only builds;
         # u_old_b stays — the transfer source term reuses it
         move_on = p_disp > 0.0
         if move_on:
@@ -148,7 +141,7 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=jnp.float64,
         com = com.at[d, slot_d].set(jnp.where(ok_x, pos_d,
                                               com[d, slot_d]))
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot2(active, d, slot_d, ok_x)
         active = clear_slot2(active, s, idx_s, ok_x)
         e = e.at[d].add(jnp.where(ok_x, u_in + dl_in, 0.0))
@@ -224,72 +217,6 @@ def make_gibbs(system, params, capacity, dv_max=0.05, dtype=jnp.float64,
             state.acc, state.att, n_steps)
         return GibbsState(*out)
 
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega Gibbs requires dtype=float32 (the "
-                             "whole-sweep kernel is f32)")
-        if not (0.0 < p_disp < 1.0):
-            raise ValueError("mega Gibbs needs 0 < p_translate < 1 - "
-                             "p_volume")
-        import dataclasses as _dc
-        from metropolismontecarlo_tpu.mc.gcmc import capacity_system
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        cap_sys = capacity_system(system, cap)
-        A_pad = cap_sys.n_atoms_padded
-        sweep_act = make_mega_sweep_fn(
-            cap_sys, params, None, None,
-            interpret=(mega == "interpret"), with_activity=True)
-        x_per = max(1, int(round(2 * cap * (1.0 - p_disp) / p_disp)))
-        if p_v > 0:
-            p_v_x = min(1.0, p_v * (2 * cap + x_per) / x_per)
-        else:
-            p_v_x = 0.0
-        run_x = make_gibbs(system,
-                           _dc.replace(params, p_translate=0.0,
-                                       p_volume=p_v_x),
-                           capacity, dv_max, dtype)[1]
-
-        def _sweep_state(state):
-            C = state.com.shape[0]
-            keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
-            knext = keys3[:, 0]
-            ck = jax.lax.bitcast_convert_type(
-                keys3[:, 1:, 0], jnp.int32).reshape(2 * C)
-            quat_id = jnp.zeros((2 * C, cap, 4), jnp.float32) \
-                .at[..., 0].set(1.0)
-            com2 = state.com.reshape(2 * C, cap, 3).astype(jnp.float32)
-            coords = jnp.swapaxes(com2, 1, 2)
-            coords = jnp.pad(coords, ((0, 0), (0, 0),
-                                      (0, A_pad - cap)))
-            sfac = jnp.zeros((2 * C, 1, 2), jnp.float32)
-            com, _, _, _, d_e, acc2, att2 = sweep_act(
-                com2, quat_id, coords, state.active.reshape(2 * C, cap),
-                state.box.reshape(2 * C).astype(jnp.float32), sfac,
-                ck, jnp.zeros((), jnp.int32))
-            pad = ((0, 0), (0, 2))     # [disp] -> + volume, transfer
-            return state._replace(
-                com=com.reshape(C, 2, cap, 3),
-                energy=state.energy + d_e.reshape(C, 2), key=knext,
-                acc=state.acc + jnp.pad(
-                    acc2.reshape(C, 2, 2).sum(1)[:, :1]
-                    .astype(jnp.int32), pad),
-                att=state.att + jnp.pad(
-                    att2.reshape(C, 2, 2).sum(1)[:, :1]
-                    .astype(jnp.int32), pad))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / (2 * cap + x_per))))
-
-            def cycle(st, _):
-                st = _sweep_state(st)
-                st = run_x(st, x_per)
-                return st, None
-
-            state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-            return state
-
     def init(key, boxes, n_init, n_chains):
         """boxes (2,) edge lengths; n_init (2,) actives per box."""
         from metropolismontecarlo_tpu.io.configs import cubic_lattice
@@ -340,12 +267,12 @@ class GibbsEnsemble:
     """
 
     def __init__(self, system, params, capacity, dv_max=0.05,
-                 dtype=jnp.float64, mega=None):
+                 dtype=jnp.float64):
         self.params = params
         self.capacity = int(capacity)
         (self._init, self.run_steps, self.full_energy,
          self.widom_boltzmann) = make_gibbs(system, params, capacity,
-                                            dv_max, dtype, mega=mega)
+                                            dv_max, dtype)
 
     def init(self, key, boxes, n_init, n_chains):
         return self._init(key, boxes, n_init, n_chains)

@@ -70,7 +70,7 @@ class BinaryGibbsState(NamedTuple):
 
 
 def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
-                      dtype=jnp.float64, n_orient=1, chunk=8, mega=None,
+                      dtype=jnp.float64, n_orient=1, chunk=8,
                       npt_pressure=None):
     """Build the binary Gibbs-ensemble step/energy functions.
 
@@ -93,22 +93,6 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
     total volume.
     Exactness anchor: at eps = q = 0 with transfers off each box is an
     ideal-gas NPT cell, V_b ~ Gamma(N_b + 1, kT/P) in closed form.
-
-    mega (True or "interpret"): displacement/rotation sweeps through
-    the activity-masked kernel — the two boxes fold over the chain
-    axis AND the species-blocked system runs one kernel call per
-    block; per-species transfers + volume exchanges stay on the jnp
-    path (recursive p_transfer=1 build, p_volume rescaled).  Requires
-    dtype=float32; see mc/gibbs_mol.make_gibbs_mol.
-
-    mega="full" (or "interpret_full"): per-species TRANSFERS run
-    in-kernel too — both boxes fold into ONE kernel row and each
-    species block gets its own gibbs-kernel call carrying that
-    species' transfer attempts (moves.make_mega_gibbs_binary_fn,
-    ops.pallas.gibbs_kernel m_start/a_start), activity planes threaded
-    between the calls; volume exchanges stay jnp on a deterministic
-    cadence.  Requires n_orient=1, 0 < p_transfer < 1, charge-neutral
-    species, f32, lj_shift='none'.
     """
     ms = make_binary_slots(system, params, dtype)
     evs, caps, m0s, a0s, Ps = ms.evs, ms.caps, ms.m0s, ms.a0s, ms.Ps
@@ -188,7 +172,7 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
             u_sel * n_tot_b.astype(dtype)).astype(jnp.int32) + 1)
         is_a = idx < caps[0]
         com_i, quat_i = com[b, idx], quat[b, idx]
-        # statically skipped in transfer-only builds (mega composition)
+        # statically skipped in transfer-only builds
         move_on = p_disp + p_rot > 0.0
         disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
             * params.dr_max
@@ -327,7 +311,7 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
                 coords[d], a0s[s] + x["slot_d"] * Ps[s], Ps[s],
                 x["ra_in"], x["ok"]))
             # one-hot where-selects, never bool scatters
-            # (utils/activity.py: the TPU bool-scatter hazard)
+            # (utils/activity.py: the bool-scatter hazard)
             act = set_slot2(new_actives[s], d, x["slot_d"], x["ok"])
             act = clear_slot2(act, b, x["slot_s"], x["ok"])
             new_actives[s] = act
@@ -452,188 +436,6 @@ def make_gibbs_binary(system, params, dv_max=0.05, p_transfer=0.3,
             state.active1, state.box, state.sfac, state.energy,
             state.key, state.acc, state.att, n_steps)
         return BinaryGibbsState(*out)
-
-    if mega:
-        import dataclasses as _dc
-
-        if dtype != jnp.float32:
-            raise ValueError("mega binary Gibbs requires dtype=float32 "
-                             "(the whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if px >= 1.0:
-            raise ValueError("mega binary Gibbs needs p_transfer < 1")
-        if px == 0.0 and p_v > 0:
-            raise ValueError("mega binary Gibbs with p_transfer = 0 "
-                             "cannot schedule volume moves")
-
-    if mega in ("full", "interpret_full"):
-        # FULLY in-kernel cycles (round 4): per-species gibbs-kernel
-        # calls on the both-boxes-in-one-row layout
-        # (moves.make_mega_gibbs_binary_fn / ops.pallas.gibbs_kernel
-        # m_start/a_start) — [2*M_tot displacement/rotation moves +
-        # x_half transfer attempts per species] per cycle, no jnp
-        # transfer scan; volume exchanges stay jnp on a deterministic
-        # cadence preserving params.p_volume.
-        if not 0.0 < px < 1.0:
-            raise ValueError("mega='full' needs 0 < p_transfer < 1")
-        if n_or != 1:
-            raise ValueError("in-kernel transfers run the unbiased "
-                             "algorithm (n_orient=1); use mega=True for "
-                             "Rosenbluth-biased transfers")
-        if any(abs(ev.q_t_tot) > 1e-5 for ev in evs):
-            raise ValueError("in-kernel binary transfers require "
-                             "charge-neutral species (the global charge "
-                             "term couples the two counts)")
-        from metropolismontecarlo_tpu.mc.moves import (
-            make_mega_gibbs_binary_fn,
-        )
-
-        M_tot = ms.M
-        x_half = max(1, int(round(2 * M_tot * 0.5 * px / (1.0 - px))))
-        sweep_g = make_mega_gibbs_binary_fn(
-            system, params, ms.kv, ms.kw,
-            interpret=(mega == "interpret_full"),
-            n_exch=(x_half, x_half))
-        att_pc = 2 * M_tot + 2 * x_half
-        if p_v > 0:
-            vol_pc = p_v * att_pc
-            if vol_pc >= 1.0:
-                k_vol, vol_every = max(1, int(round(vol_pc))), 1
-            else:
-                k_vol, vol_every = 1, max(1, int(round(1.0 / vol_pc)))
-        else:
-            k_vol, vol_every = 0, 1
-
-        def _vol_state(state):
-            carry = (state.com, state.quat, state.coords, state.active0,
-                     state.active1, state.box, state.sfac, state.energy,
-                     state.key, state.acc, state.att)
-            return BinaryGibbsState(*jax.vmap(_vol_step)(carry))
-
-        def _cycle_full(state):
-            C = state.com.shape[0]
-            keys2 = jax.vmap(jax.random.split)(state.key)
-            knext, sub = keys2[:, 0], keys2[:, 1]
-            ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-            box_flat = state.box.reshape(2 * C)
-            si2s = tuple(
-                jax.vmap(ev.self_intra)(box_flat).reshape(C, 2)
-                for ev in evs)
-            if ms.use_lrc:
-                # per-box tail coefficients: own-species quadratic on
-                # the wc lane, cross term threaded from the LIVE other-
-                # species counts inside sweep_g (moves.py lrc_cross)
-                g_c = jax.vmap(ms.lrc_gmat)(box_flat)   # (2C, 2, 2)
-                wc2s = (g_c[:, 0, 0].reshape(C, 2),
-                        g_c[:, 1, 1].reshape(C, 2))
-                lrc_cross = (g_c[:, 0, 1].reshape(C, 2),
-                             g_c[:, 1, 0].reshape(C, 2))
-            else:
-                wc2s = (jnp.zeros_like(state.box),) * 2
-                lrc_cross = None
-            (com, quat, coords, a0, a1, sfac_o, d_e, acc4,
-             att4) = sweep_g(state.com, state.quat, state.coords,
-                             state.active0, state.active1, state.box,
-                             state.sfac, ck, jnp.zeros((), jnp.int32),
-                             si2s, wc2s, lrc_cross=lrc_cross)
-            zc = jnp.zeros_like(acc4[:, 0])
-            acc5 = jnp.stack([acc4[:, 0], acc4[:, 1], zc,
-                              acc4[:, 2], acc4[:, 3]], 1)
-            att5 = jnp.stack([att4[:, 0], att4[:, 1], zc,
-                              att4[:, 2], att4[:, 3]], 1)
-            return state._replace(
-                com=com, quat=quat, coords=coords,
-                active0=a0, active1=a1,
-                sfac=sfac_o if use_ewald else state.sfac,
-                energy=state.energy + d_e, key=knext,
-                acc=state.acc + acc5.astype(jnp.int32),
-                att=state.att + att5.astype(jnp.int32))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / att_pc)))
-
-            def cyc(st, _):
-                return _cycle_full(st), None
-
-            if k_vol:
-                n_sup, rem = divmod(n_cyc, vol_every)
-            else:
-                n_sup, rem = 0, n_cyc
-            if n_sup:
-                def super_cycle(st, _):
-                    st, _ = jax.lax.scan(cyc, st, None, length=vol_every)
-                    for _i in range(k_vol):
-                        st = _vol_state(st)
-                    return st, None
-
-                state, _ = jax.lax.scan(super_cycle, state, None,
-                                        length=n_sup)
-            if rem:
-                state, _ = jax.lax.scan(cyc, state, None, length=rem)
-            return state
-
-    elif mega:
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        sweep_act = make_mega_sweep_fn(
-            system, params, ms.kv, ms.kw,
-            interpret=(mega == "interpret"), with_activity=True)
-        M_tot, A_pad = ms.M, ms.A_pad
-        if px > 0.0:
-            x_per = max(1, int(round(2 * M_tot * px / (1.0 - px))))
-            params_x = _dc.replace(
-                params, p_volume=min(1.0, p_v * (2 * M_tot + x_per)
-                                     / x_per)) if p_v > 0 else params
-            run_x = make_gibbs_binary(system, params_x, dv_max, 1.0,
-                                      dtype, n_orient, chunk)[1]
-        else:
-            run_x, x_per = None, 0
-
-        def _sweep_state(state):
-            C = state.com.shape[0]
-            keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
-            knext = keys3[:, 0]
-            ck = jax.lax.bitcast_convert_type(
-                keys3[:, 1:, 0], jnp.int32).reshape(2 * C)
-            active = jnp.concatenate(
-                [state.active0, state.active1], axis=2)     # (C, 2, M)
-            com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                state.com.reshape(2 * C, M_tot, 3),
-                state.quat.reshape(2 * C, M_tot, 4),
-                state.coords.reshape(2 * C, 3, A_pad),
-                active.reshape(2 * C, M_tot),
-                state.box.reshape(2 * C),
-                state.sfac.reshape(2 * C, K, 2),
-                ck, jnp.zeros((), jnp.int32))
-            pad = ((0, 0), (0, 3))     # [disp, rot] -> + vol, xfer0/1
-            return state._replace(
-                com=com.reshape(C, 2, M_tot, 3),
-                quat=quat.reshape(C, 2, M_tot, 4),
-                coords=coords.reshape(C, 2, 3, A_pad),
-                sfac=sfac.reshape(C, 2, K, 2) if use_ewald
-                else state.sfac,
-                energy=state.energy + d_e.reshape(C, 2),
-                key=knext,
-                acc=state.acc + jnp.pad(
-                    acc2.reshape(C, 2, 2).sum(1).astype(jnp.int32), pad),
-                att=state.att + jnp.pad(
-                    att2.reshape(C, 2, 2).sum(1).astype(jnp.int32), pad))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / (2 * M_tot + x_per))))
-
-            def cycle(st, _):
-                st = _sweep_state(st)
-                if run_x is not None:
-                    st = run_x(st, x_per)
-                return st, None
-
-            state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-            return state
 
     def init(key, boxes, n_init, n_chains):
         """boxes (2,) edges; n_init (2, 2) = [species][box] counts."""
@@ -760,14 +562,13 @@ class BinaryGibbsEnsemble:
     """
 
     def __init__(self, system, params, dv_max=0.05, p_transfer=0.3,
-                 dtype=jnp.float64, n_orient=1, chunk=8, mega=None,
+                 dtype=jnp.float64, n_orient=1, chunk=8,
                  npt_pressure=None):
         self.params = params
         (self._init, self.run_steps, self.full_energy,
          self._check_ewald, self.pressure_fd,
          self.widom_boltzmann) = make_gibbs_binary(
-            system, params, dv_max, p_transfer, dtype, n_orient, chunk,
-            mega=mega, npt_pressure=npt_pressure)
+            system, params, dv_max, p_transfer, dtype, n_orient, chunk, npt_pressure=npt_pressure)
         sl = system.species_slices
         self.capacities = (sl[0][2] - sl[0][1], sl[1][2] - sl[1][1])
 

@@ -58,7 +58,7 @@ class MolGibbsState(NamedTuple):
 
 
 def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
-                   dtype=jnp.float64, n_orient=1, chunk=8, mega=None):
+                   dtype=jnp.float64, n_orient=1, chunk=8):
     """Build the molecular Gibbs-ensemble step/energy functions.
 
     system: uniform single-species System; its n_mol is the PER-BOX slot
@@ -70,28 +70,6 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
     k-trial insertion in the destination box, existing orientation +
     k-1 trials at the molecule's COM in the source box; see
     mc/gcmc_mol.py).  Exact for every k; k = 1 is the unbiased rule.
-
-    mega (True or "interpret"): run the displacement/rotation fraction
-    through the activity-masked whole-sweep Pallas kernel — the TWO
-    boxes FOLD over the chain axis ((C, 2, ...) -> (2C, ...)), so one
-    kernel call sweeps both boxes of every chain; transfers and volume
-    exchanges stay on the jnp path (recursive p_transfer=1 build whose
-    p_volume is rescaled to keep the volume-attempt cadence).  Requires
-    dtype=float32 and p_transfer > 0; see mc/gcmc_mol.make_gcmc_mol for
-    the composition argument (deterministic alternation of reversible
-    kernels).
-
-    mega="full" (or "interpret_full"): run the TRANSFERS in-kernel too
-    — both boxes of a chain fold into ONE kernel row (box 1's columns
-    offset by A_pad/m_pad) and each Pallas call executes [2*cap
-    displacement/rotation moves + x_per transfer attempts], a transfer
-    being an in-kernel deletion+insertion pair on that row with each
-    box's own kappa/self-intra constants (moves.make_mega_gibbs_fn,
-    ops.pallas.gibbs_kernel) — the round-3 muVT kernel-exchange design
-    applied to Gibbs.  Volume exchanges remain jnp full-recompute
-    moves on a deterministic cadence preserving params.p_volume.
-    Requires n_orient=1 (unbiased transfers), 0 < p_transfer < 1,
-    dtype=float32.
     """
     ms = make_mol_slots(system, params, dtype)
     ev, P, cap, K = ms.ev, ms.P, ms.cap, ms.K
@@ -179,8 +157,8 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         s_old = pose_sfac_or_zero(ra_old, box[b])
 
         # --- displaced / rotated pose in box b (statically skipped in
-        # transfer-only builds — the mega composition's jnp cycles;
-        # e_old/ra_old/s_old stay: the transfer source needs them) ------
+        # transfer-only builds; e_old/ra_old/s_old stay: the transfer
+        # source needs them) ---------------------------------------------
         move_on = p_disp + p_rot > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -277,7 +255,7 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
         coords = coords.at[d_box].set(
             ms.write_pose(coords[d_box], slot_d, ra_in, ok_x))
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot2(active, d_box, slot_d, ok_x)
         active = clear_slot2(active, s_box, idx, ok_x)
         w_x = jnp.where(ok_x, 1.0, 0.0)
@@ -381,182 +359,6 @@ def make_gibbs_mol(system, params, dv_max=0.05, p_transfer=0.3,
             state.sfac, state.energy, state.key, state.acc, state.att,
             n_steps)
         return MolGibbsState(*out)
-
-    if mega:
-        import dataclasses as _dc
-
-        if dtype != jnp.float32:
-            raise ValueError("mega Gibbs requires dtype=float32 (the "
-                             "whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if px >= 1.0:
-            raise ValueError("mega Gibbs needs p_transfer < 1 (otherwise "
-                             "there is no displacement work to kernelize)")
-        if px == 0.0 and p_v > 0:
-            raise ValueError("mega Gibbs with p_transfer = 0 cannot "
-                             "schedule volume moves (set p_volume = 0 "
-                             "for a pure-displacement pre-equilibration)")
-
-    if mega in ("full", "interpret_full"):
-        # FULLY in-kernel cycles (round 4): one Pallas call runs
-        # [2*cap displacement/rotation moves + x_per transfer attempts]
-        # with both boxes of each chain resident in ONE kernel row
-        # (moves.make_mega_gibbs_fn / ops.pallas.gibbs_kernel) — no jnp
-        # transfer scan at all, the round-3 muVT treatment applied to
-        # the Gibbs ensemble.  Volume exchanges stay on the jnp path
-        # (_vol_step, full-recompute moves) on a deterministic cadence
-        # that preserves params.p_volume attempts per plain attempt.
-        if not 0.0 < px < 1.0:
-            raise ValueError("mega='full' needs 0 < p_transfer < 1")
-        if n_or != 1:
-            raise ValueError("in-kernel transfers run the unbiased "
-                             "algorithm (n_orient=1); use mega=True for "
-                             "Rosenbluth-biased transfers")
-        from metropolismontecarlo_tpu.mc.moves import make_mega_gibbs_fn
-
-        x_per = max(1, int(round(2 * cap * px / (1.0 - px))))
-        sweep_g = make_mega_gibbs_fn(
-            system, params, ms.kv, ms.kw,
-            interpret=(mega == "interpret_full"), n_exch=x_per)
-        att_pc = 2 * cap + x_per
-        if p_v > 0:
-            vol_pc = p_v * att_pc
-            if vol_pc >= 1.0:
-                k_vol, vol_every = max(1, int(round(vol_pc))), 1
-            else:
-                k_vol, vol_every = 1, max(1, int(round(1.0 / vol_pc)))
-        else:
-            k_vol, vol_every = 0, 1
-
-        def _vol_state(state):
-            carry = (state.com, state.quat, state.coords, state.active,
-                     state.box, state.sfac, state.energy, state.key,
-                     state.acc, state.att)
-            return MolGibbsState(*jax.vmap(_vol_step)(carry))
-
-        def _cycle_full(state):
-            C = state.com.shape[0]
-            keys2 = jax.vmap(jax.random.split)(state.key)
-            knext, sub = keys2[:, 0], keys2[:, 1]
-            ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-            box_flat = state.box.reshape(2 * C)
-            si2 = jax.vmap(ev.self_intra)(box_flat).reshape(C, 2)
-            if ms.q_t2 != 0.0:
-                wc2 = jax.vmap(ev.wolf_const_coeff)(box_flat) \
-                    .reshape(C, 2) * ms.q_t2
-            else:
-                wc2 = jnp.zeros_like(state.box)
-            if ev.use_lrc:
-                # per-box LRC coefficient rides the kernel's quadratic
-                # constant lane (see mc/gcmc_mol._cycle_full)
-                wc2 = wc2 + jax.vmap(ev.lrc_self_coeff)(box_flat) \
-                    .reshape(C, 2)
-            (com, quat, coords, active, sfac_o, d_e, acc3,
-             att3) = sweep_g(state.com, state.quat, state.coords,
-                             state.active, state.box, state.sfac, ck,
-                             jnp.zeros((), jnp.int32), si2, wc2)
-            zc = jnp.zeros_like(acc3[:, 0])
-            acc4 = jnp.stack([acc3[:, 0], acc3[:, 1], zc, acc3[:, 2]], 1)
-            att4 = jnp.stack([att3[:, 0], att3[:, 1], zc, att3[:, 2]], 1)
-            return state._replace(
-                com=com, quat=quat, coords=coords, active=active,
-                sfac=sfac_o if use_ewald else state.sfac,
-                energy=state.energy + d_e, key=knext,
-                acc=state.acc + acc4.astype(jnp.int32),
-                att=state.att + att4.astype(jnp.int32))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / att_pc)))
-
-            def cyc(st, _):
-                return _cycle_full(st), None
-
-            if k_vol:
-                n_sup, rem = divmod(n_cyc, vol_every)
-            else:
-                n_sup, rem = 0, n_cyc
-            if n_sup:
-                def super_cycle(st, _):
-                    st, _ = jax.lax.scan(cyc, st, None, length=vol_every)
-                    for _i in range(k_vol):
-                        st = _vol_state(st)
-                    return st, None
-
-                state, _ = jax.lax.scan(super_cycle, state, None,
-                                        length=n_sup)
-            if rem:
-                state, _ = jax.lax.scan(cyc, state, None, length=rem)
-            return state
-
-    elif mega:
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        sweep_act = make_mega_sweep_fn(
-            system, params, ms.kv, ms.kw,
-            interpret=(mega == "interpret"), with_activity=True)
-        A_pad = ms.A_pad
-        # one sweep = 2*cap displacement/rotation attempts (both boxes);
-        # x_per transfers keep the attempt mix at p_transfer, and the
-        # recursive build's p_volume is rescaled so volume attempts per
-        # plain-equivalent attempt stay at params.p_volume.  p_transfer
-        # = 0 (+ p_volume = 0) runs pure kernel sweeps — the Gibbs
-        # pre-equilibration phase.
-        if px > 0.0:
-            x_per = max(1, int(round(2 * cap * px / (1.0 - px))))
-            if p_v > 0:
-                p_v_x = min(1.0, p_v * (2 * cap + x_per) / x_per)
-                params_x = _dc.replace(params, p_volume=p_v_x)
-            else:
-                params_x = params
-            run_x = make_gibbs_mol(system, params_x, dv_max, 1.0,
-                                   dtype, n_orient, chunk)[1]
-        else:
-            run_x, x_per = None, 0
-
-        def _sweep_state(state):
-            C = state.com.shape[0]
-            keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
-            knext = keys3[:, 0]
-            # (C, 2) per-(chain, box) subkeys -> (2C,) kernel streams in
-            # the same box-fastest order as the reshape fold below
-            ck = jax.lax.bitcast_convert_type(
-                keys3[:, 1:, 0], jnp.int32).reshape(2 * C)
-            com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                state.com.reshape(2 * C, cap, 3),
-                state.quat.reshape(2 * C, cap, 4),
-                state.coords.reshape(2 * C, 3, A_pad),
-                state.active.reshape(2 * C, cap),
-                state.box.reshape(2 * C),
-                state.sfac.reshape(2 * C, K, 2),
-                ck, jnp.zeros((), jnp.int32))
-            pad = ((0, 0), (0, 2))            # [disp, rot] -> + vol, xfer
-            return state._replace(
-                com=com.reshape(C, 2, cap, 3),
-                quat=quat.reshape(C, 2, cap, 4),
-                coords=coords.reshape(C, 2, 3, A_pad),
-                sfac=sfac.reshape(C, 2, K, 2) if use_ewald else state.sfac,
-                energy=state.energy + d_e.reshape(C, 2),
-                key=knext,
-                acc=state.acc + jnp.pad(
-                    acc2.reshape(C, 2, 2).sum(1).astype(jnp.int32), pad),
-                att=state.att + jnp.pad(
-                    att2.reshape(C, 2, 2).sum(1).astype(jnp.int32), pad))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / (2 * cap + x_per))))
-
-            def cycle(st, _):
-                st = _sweep_state(st)
-                if run_x is not None:
-                    st = run_x(st, x_per)
-                return st, None
-
-            state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-            return state
 
     def init(key, boxes, n_init, n_chains):
         """boxes (2,) edge lengths; n_init (2,) active molecules per box."""
@@ -715,7 +517,7 @@ class MolGibbsEnsemble:
     """
 
     def __init__(self, system, params, dv_max=0.05, p_transfer=0.3,
-                 dtype=jnp.float64, n_orient=1, chunk=8, mega=None):
+                 dtype=jnp.float64, n_orient=1, chunk=8):
         self.params = params
         self.capacity = system.n_mol
         (self._init, self.run_steps, self.full_energy,
@@ -723,7 +525,7 @@ class MolGibbsEnsemble:
          self.pressure_fd, self.widom_works) = make_gibbs_mol(
             system, params, dv_max,
                                             p_transfer, dtype,
-                                            n_orient, chunk, mega=mega)
+                                            n_orient, chunk)
 
     def init(self, key, boxes, n_init, n_chains):
         return self._init(key, boxes, n_init, n_chains)

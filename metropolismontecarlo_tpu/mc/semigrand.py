@@ -65,7 +65,7 @@ class SemigrandState(NamedTuple):
 
 
 def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
-                   dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                   dtype=jnp.float64, chunk=8, n_orient=1):
     """Build the semigrand step/energy functions.
 
     system: a System with EXACTLY two species blocks (A then B), each
@@ -73,18 +73,6 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
     each be >= the fixed total molecule count chosen at init.
     fugacity_ratio: xi = f_B/f_A.  Returns (init, run_steps,
     full_energy) shaped as the other ensemble apps.
-
-    mega (True or "interpret"): displacement/rotation sweeps through
-    the activity-masked whole-sweep kernel (one call per species
-    block), identity flips on the jnp path (recursive p_flip=1 build).
-    Same composition contract as mc/gcmc_mol; requires dtype=float32.
-
-    mega="full" (or "interpret_full"): identity flips run IN-KERNEL
-    too, through the dedicated flip kernel (moves.make_mega_flip_fn,
-    ops.pallas.flip_kernel: both species' templates in one call, every
-    attempt evaluates both direction branches and where-selects) — no
-    jnp flip scan.  Requires n_orient=1, 0 < p_flip < 1, f32,
-    lj_shift="none".
     """
     slices = system.species_slices
     if len(slices) != 2:
@@ -244,7 +232,7 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
         s_old = jnp.where(is_a, s0_o, s1_o)
 
         # --- displacement / rotation (both species, where-select;
-        # statically skipped in flip-only builds — mega composition) -----
+        # statically skipped in flip-only builds) -----------------------
         move_on = p_disp + p_rot > 0.0
         if move_on:
             disp = (jax.random.uniform(k_pos, (3,), dtype) - 0.5) \
@@ -365,7 +353,7 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
         coords = write_pose1(coords, t_in_b, ra_f1, ok_f & is_a)
         coords = write_pose0(coords, t_in_a, ra_f0, ok_f & ~is_a)
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot(active, tgt, ok_f)
         active = clear_slot(active, idx, ok_f)
         w_f = jnp.where(ok_f, 1.0, 0.0)
@@ -434,129 +422,6 @@ def make_semigrand(system, params, fugacity_ratio, p_flip=0.3,
             state.sfac, state.energy, state.key, state.acc, state.att,
             n_steps)
         return SemigrandState(*out)
-
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega semigrand requires dtype=float32 "
-                             "(the whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if px >= 1.0:
-            raise ValueError("mega semigrand needs p_flip < 1")
-
-    if mega in ("full", "interpret_full"):
-        # FULLY kernelized cycles (round 4): displacement/rotation
-        # sweeps through the per-block sweep_act kernel calls +
-        # x_per identity flips through the dedicated flip kernel
-        # (moves.make_mega_flip_fn / ops.pallas.flip_kernel — a flip
-        # touches BOTH species' templates in one attempt, which the
-        # per-block sweep kernel cannot express) — no jnp flip scan.
-        if not 0.0 < px < 1.0:
-            raise ValueError("mega='full' needs 0 < p_flip < 1")
-        if n_or != 1:
-            raise ValueError("in-kernel flips run the unbiased "
-                             "algorithm (n_orient=1); use mega=True "
-                             "for Rosenbluth-biased flips")
-        from metropolismontecarlo_tpu.mc.moves import (
-            make_mega_flip_fn,
-            make_mega_sweep_fn,
-        )
-
-        interp = mega == "interpret_full"
-        sweep_act = make_mega_sweep_fn(
-            system, params, kv, kw, interpret=interp, with_activity=True)
-        x_per = max(1, int(round(M * px / (1.0 - px))))
-        flips = make_mega_flip_fn(system, params, kv, kw,
-                                  fugacity_ratio, interpret=interp,
-                                  n_flip=x_per)
-
-        def _cycle_full(state):
-            keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
-            knext, sub_s, sub_f = keys3[:, 0], keys3[:, 1], keys3[:, 2]
-            ck_s = jax.lax.bitcast_convert_type(sub_s[:, 0], jnp.int32)
-            ck_f = jax.lax.bitcast_convert_type(sub_f[:, 0], jnp.int32)
-            com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                state.com, state.quat, state.coords, state.active,
-                state.box, state.sfac, ck_s, jnp.zeros((), jnp.int32))
-            st = state._replace(
-                com=com, quat=quat, coords=coords,
-                sfac=sfac if use_ewald else state.sfac,
-                energy=state.energy + d_e)
-            si2 = jnp.stack(
-                [jax.vmap(lambda b: species_const(ev0, b))(st.box),
-                 jax.vmap(lambda b: species_const(ev1, b))(st.box)],
-                axis=1)
-            if use_lrc:
-                # in-kernel flip tail delta coefficients [g c00, g c01,
-                # g c11] (flip_kernel reads live per-species counts)
-                g = jax.vmap(lrc_g)(st.box)
-                lrc3 = jnp.stack([g * c00, g * c01, g * c11], axis=1)
-            else:
-                lrc3 = None
-            (com, quat, coords, active, sfac_o, d_ef, accf,
-             attf) = flips(st.com, st.quat, st.coords, st.active,
-                           st.box, st.sfac, ck_f,
-                           jnp.zeros((), jnp.int32), si2, lrc3=lrc3)
-            acc4 = jnp.concatenate([acc2, accf], axis=1)
-            att4 = jnp.concatenate([att2, attf], axis=1)
-            return st._replace(
-                com=com, quat=quat, coords=coords, active=active,
-                sfac=sfac_o if use_ewald else st.sfac,
-                energy=st.energy + d_ef, key=knext,
-                acc=state.acc + acc4.astype(jnp.int32),
-                att=state.att + att4.astype(jnp.int32))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-            def cycle(st, _):
-                return _cycle_full(st), None
-
-            state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-            return state
-
-    elif mega:
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        sweep_act = make_mega_sweep_fn(
-            system, params, kv, kw, interpret=(mega == "interpret"),
-            with_activity=True)
-        if px > 0.0:
-            run_x = make_semigrand(system, params, fugacity_ratio, 1.0,
-                                   dtype, chunk, n_orient)[1]
-            x_per = max(1, int(round(M * px / (1.0 - px))))
-        else:
-            run_x, x_per = None, 0
-
-        def _sweep_state(state):
-            keys2 = jax.vmap(jax.random.split)(state.key)
-            knext, sub = keys2[:, 0], keys2[:, 1]
-            ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-            com, quat, coords, sfac, d_e, acc2, att2 = sweep_act(
-                state.com, state.quat, state.coords, state.active,
-                state.box, state.sfac, ck, jnp.zeros((), jnp.int32))
-            pad = ((0, 0), (0, 2))   # [trans, rot] -> + flipA, flipB
-            return state._replace(
-                com=com, quat=quat, coords=coords,
-                sfac=sfac if use_ewald else state.sfac,
-                energy=state.energy + d_e, key=knext,
-                acc=state.acc + jnp.pad(acc2.astype(jnp.int32), pad),
-                att=state.att + jnp.pad(att2.astype(jnp.int32), pad))
-
-        @partial(jax.jit, static_argnums=1)
-        def run_steps(state, n_steps):   # noqa: F811
-            n_cyc = max(1, int(round(n_steps / (M + x_per))))
-
-            def cycle(st, _):
-                st = _sweep_state(st)
-                if run_x is not None:
-                    st = run_x(st, x_per)
-                return st, None
-
-            state, _ = jax.lax.scan(cycle, state, None, length=n_cyc)
-            return state
 
     def init(key, box, n_a, n_b, n_chains):
         """n_a + n_b molecules total (conserved); requires n_a + n_b <=
@@ -627,11 +492,11 @@ class Semigrand:
     """
 
     def __init__(self, system, params, fugacity_ratio, p_flip=0.3,
-                 dtype=jnp.float64, chunk=8, n_orient=1, mega=None):
+                 dtype=jnp.float64, chunk=8, n_orient=1):
         self.params = params
         self._init, self.run_steps, self.full_energy = make_semigrand(
             system, params, fugacity_ratio, p_flip, dtype, chunk,
-            n_orient, mega=mega)
+            n_orient)
         self.cap_a = system.species_slices[0][2] \
             - system.species_slices[0][1]
 

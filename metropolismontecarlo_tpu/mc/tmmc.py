@@ -49,8 +49,7 @@ from metropolismontecarlo_tpu.mc.gcmc import GCMCState, make_slot_lj
 from metropolismontecarlo_tpu.utils.activity import clear_slot, set_slot
 
 
-def make_tmmc(system, params, activity, capacity, dtype=jnp.float64,
-              mega=None):
+def make_tmmc(system, params, activity, capacity, dtype=jnp.float64):
     """Build the biased-muVT step functions with collection-matrix
     accumulation.
 
@@ -91,7 +90,7 @@ def make_tmmc(system, params, activity, capacity, dtype=jnp.float64,
         idx = nth_active(active, jnp.floor(u_sel * n).astype(jnp.int32))
         u_old = site_energy(com, active, box, com[idx], idx)
 
-        # statically skipped in exchange-only builds (mega composition);
+        # statically skipped in exchange-only builds;
         # u_old stays — the deletion deposit needs it every step
         move_on = p_t > 0.0
         if move_on:
@@ -145,7 +144,7 @@ def make_tmmc(system, params, activity, capacity, dtype=jnp.float64,
             e = e + jnp.where(ok_t, u_new - u_old, 0.0)
         com = com.at[slot].set(jnp.where(ok_i, pos_i, com[slot]))
         # one-hot where-selects, never bool scatters (utils/activity.py:
-        # the TPU bool-scatter hazard)
+        # the bool-scatter hazard)
         active = set_slot(active, slot, ok_i)
         active = clear_slot(active, idx, ok_d)
         e = e + jnp.where(ok_i, u_ins + dl_i, 0.0) \
@@ -200,123 +199,6 @@ def make_tmmc(system, params, activity, capacity, dtype=jnp.float64,
         new = GCMCState(out[0], out[1], out[2], out[3], out[4],
                         out[5], out[6])
         return new, out[7], out[8]
-
-    if mega:
-        if dtype != jnp.float32:
-            raise ValueError("mega TMMC requires dtype=float32 (the "
-                             "whole-sweep kernel is f32)")
-        if mega not in (True, "interpret", "full", "interpret_full"):
-            raise ValueError("mega must be True, 'interpret', 'full' or "
-                             f"'interpret_full': {mega!r}")
-        if not (0.0 < p_t < 1.0):
-            raise ValueError("mega TMMC needs 0 < p_translate < 1")
-        import dataclasses as _dc
-        from metropolismontecarlo_tpu.mc.gcmc import capacity_system
-        from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-
-        interp = mega in ("interpret", "interpret_full")
-        cap_sys = capacity_system(system, cap)
-        A_pad = cap_sys.n_atoms_padded
-
-        if mega in ("full", "interpret_full"):
-            # in-kernel exchanges WITH in-kernel Rao-Blackwellized
-            # deposits — see mc/gcmc_mol.make_gcmc_mol(mega="full")
-            x_per = max(1, int(round(cap * (1.0 - p_t) / p_t)))
-            sweep_x = make_mega_sweep_fn(
-                cap_sys, params, None, None, interpret=interp,
-                with_activity=True, n_exch=x_per, tmmc_exch=True)
-
-            def _cycle_full(state, eta):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                quat_id = jnp.zeros((C, cap, 4), jnp.float32) \
-                    .at[..., 0].set(1.0)
-                coords = jnp.swapaxes(state.com, 1, 2).astype(jnp.float32)
-                coords = jnp.pad(coords, ((0, 0), (0, 0),
-                                          (0, A_pad - cap)))
-                sfac = jnp.zeros((C, 1, 2), jnp.float32)
-                zeros = jnp.zeros((C,), jnp.float32)
-                zc = jnp.broadcast_to(z.astype(jnp.float32), (C,))
-                wc_c = jax.vmap(lrc_g)(state.box.astype(jnp.float32)) \
-                    if lrc_g is not None else zeros
-                (com, _, _, active, _, d_e, acc4, att4, cm,
-                 uh) = sweep_x(
-                    state.com.astype(jnp.float32), quat_id, coords,
-                    state.active, state.box.astype(jnp.float32), sfac,
-                    ck, jnp.zeros((), jnp.int32), zc, zeros, wc_c,
-                    energy=state.energy, eta=eta)
-                sel = jnp.asarray([0, 2, 3])
-                st = state._replace(
-                    com=com, active=active,
-                    energy=state.energy + d_e, key=knext,
-                    acc=state.acc + acc4[:, sel].astype(jnp.int32),
-                    att=state.att + att4[:, sel].astype(jnp.int32))
-                return st, cm, uh
-
-            @partial(jax.jit, static_argnums=2)
-            def run_steps(state, eta, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                eta_j = jnp.asarray(eta, dtype)
-
-                def cycle(carry, _):
-                    st, cmat, uhist = carry
-                    st, cm, uh = _cycle_full(st, eta_j)
-                    return (st, cmat + cm, uhist + uh), None
-
-                zeros2 = jnp.zeros((state.com.shape[0], cap + 1, 3),
-                                   dtype)
-                (state, cmat, uhist), _ = jax.lax.scan(
-                    cycle, (state, zeros2, zeros2), None, length=n_cyc)
-                return state, cmat, uhist
-
-        else:
-            sweep_act = make_mega_sweep_fn(
-                cap_sys, params, None, None,
-                interpret=interp, with_activity=True)
-            run_x = make_tmmc(system, _dc.replace(params, p_translate=0.0),
-                              activity, capacity, dtype)[1]
-            x_per = max(1, int(round(cap * (1.0 - p_t) / p_t)))
-
-            def _sweep_state(state):
-                C = state.com.shape[0]
-                keys2 = jax.vmap(jax.random.split)(state.key)
-                knext, sub = keys2[:, 0], keys2[:, 1]
-                ck = jax.lax.bitcast_convert_type(sub[:, 0], jnp.int32)
-                quat_id = jnp.zeros((C, cap, 4), jnp.float32) \
-                    .at[..., 0].set(1.0)
-                coords = jnp.swapaxes(state.com, 1, 2).astype(jnp.float32)
-                coords = jnp.pad(coords, ((0, 0), (0, 0),
-                                          (0, A_pad - cap)))
-                sfac = jnp.zeros((C, 1, 2), jnp.float32)
-                com, _, _, _, d_e, acc2, att2 = sweep_act(
-                    state.com.astype(jnp.float32), quat_id, coords,
-                    state.active, state.box.astype(jnp.float32), sfac,
-                    ck, jnp.zeros((), jnp.int32))
-                pad = ((0, 0), (0, 2))
-                return state._replace(
-                    com=com, energy=state.energy + d_e, key=knext,
-                    acc=state.acc + jnp.pad(
-                        acc2[:, :1].astype(jnp.int32), pad),
-                    att=state.att + jnp.pad(
-                        att2[:, :1].astype(jnp.int32), pad))
-
-            @partial(jax.jit, static_argnums=2)
-            def run_steps(state, eta, n_steps):   # noqa: F811
-                n_cyc = max(1, int(round(n_steps / (cap + x_per))))
-                eta = jnp.asarray(eta, dtype)
-
-                def cycle(carry, _):
-                    st, cmat, uhist = carry
-                    st = _sweep_state(st)
-                    st, cm, uh = run_x(st, eta, x_per)
-                    return (st, cmat + cm, uhist + uh), None
-
-                zeros = jnp.zeros((state.com.shape[0], cap + 1, 3), dtype)
-                (state, cmat, uhist), _ = jax.lax.scan(
-                    cycle, (state, zeros, zeros), None, length=n_cyc)
-                return state, cmat, uhist
 
     def init(key, box, n_init, n_chains):
         """n_init: scalar, or (n_chains,) per-chain STRATIFIED starts —
@@ -578,12 +460,12 @@ class TMMC:
     """
 
     def __init__(self, system, params, activity, capacity,
-                 dtype=jnp.float64, mega=None):
+                 dtype=jnp.float64):
         self.params = params
         self.activity = float(activity)
         self.capacity = int(capacity)
         self._init, self._run_steps, self.full_energy = make_tmmc(
-            system, params, activity, capacity, dtype, mega=mega)
+            system, params, activity, capacity, dtype)
         self.cmat = np.zeros((self.capacity + 1, 3), np.float64)
         self.uhist = np.zeros((self.capacity + 1, 3), np.float64)
         self.eta = np.zeros(self.capacity + 1, np.float64)
@@ -716,14 +598,14 @@ class TMMCMol:
 
     def __init__(self, system, params, activity, p_exchange=0.3,
                  dtype=jnp.float64, chunk=8, n_orient=1,
-                 bias="orientation", mega=None):
+                 bias="orientation"):
         from metropolismontecarlo_tpu.mc.gcmc_mol import make_gcmc_mol
         self.params = params
         self.activity = float(activity)
         self.capacity = int(system.n_mol)
         self._init, self._run_steps, self.full_energy = make_gcmc_mol(
             system, params, activity, p_exchange, dtype, chunk, n_orient,
-            bias, tmmc=True, mega=mega)
+            bias, tmmc=True)
         self.cmat = np.zeros((self.capacity + 1, 3), np.float64)
         self.uhist = np.zeros((self.capacity + 1, 3), np.float64)
         self.eta = np.zeros(self.capacity + 1, np.float64)

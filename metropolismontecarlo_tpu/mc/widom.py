@@ -6,7 +6,7 @@
 where dU_test is the energy of inserting one ghost molecule at a uniform
 random position (and orientation, for rigid bodies) into a sampled
 configuration.  The reference has no free-energy machinery; this is a
-beyond-parity capability, and a natural TPU one: each insertion is a
+beyond-parity capability, and a natural data-parallel one: each insertion is a
 dense masked (P, A) pair-energy row — exactly the shape of a move's
 delta-energy evaluation — so a sample batches n_ins ghost molecules per
 chain as one vectorized evaluation, chunk-scanned over chains.
@@ -16,7 +16,7 @@ coulomb style and cutoff mode): LJ pairs (+ optional linear shift), the
 LJ tail-correction increment U_lrc(N+1) - U_lrc(N), and per style
   * ewald: real-space erfc pairs + reciprocal-space delta via the
     carried structure factors (O(P K), the same RecipMove trick the
-    moves use — `/root/reference/Ewald/ewalds.jl:718-826`), + the ghost
+    moves use — reference `Ewald/ewalds.jl:718-826`), + the ghost
     molecule's self and intramolecular terms (+ surface-dipole delta
     when enabled);
   * wolf: pairwise(-shifted) erfc pairs + the ghost's self/background
@@ -94,7 +94,7 @@ def make_pose_eval(system, params, kvecs, kweights, dtype=jnp.float32,
     tm = np.asarray(system.type_ids)[m0, :P]
 
     # static (P, A_pad) parameter rows, expanded in NumPy at trace time
-    # (traced table gathers are ~100x slower on TPU; models/energy.py)
+    # (no traced table gathers in the hot loop; models/energy.py)
     tid = np.asarray(system.flat(system.type_ids))
     tid_safe = np.concatenate([tid, np.zeros(A_pad - A, tid.dtype)])
     eps_np = np.asarray(system.eps_table)[tm[:, None], tid_safe[None, :]]
@@ -213,7 +213,7 @@ def make_pose_eval(system, params, kvecs, kweights, dtype=jnp.float32,
 
     def wolf_const_coeff(box):
         """E_const = coeff * Q_tot^2 for the reference-Wolf convention
-        (`/root/reference/Ewald/energy.jl:924-931`); 0 otherwise."""
+        (reference `Ewald/energy.jl:924-931`); 0 otherwise."""
         if params.coulomb != "wolf" or params.wolf_style == "pairwise":
             return jnp.zeros((), dtype)
         kappa = jnp.asarray(params.kappa_L, dtype) / box
@@ -242,8 +242,7 @@ def make_pose_eval(system, params, kvecs, kweights, dtype=jnp.float32,
     def lrc_self_coeff(box):
         """g(box) = (8 pi / 3 box^3) c_mm, the LRC analog of
         wolf_const_coeff: U_lrc = g * N^2 for N molecules of this
-        species, so exchange deltas are g*((N+dn)^2 - N^2) and ride
-        the same affine (si, wc) lanes in the exchange kernels."""
+        species, so exchange deltas are g*((N+dn)^2 - N^2)."""
         if c_mm == 0.0:
             return jnp.zeros((), dtype)
         return jnp.asarray(tail_ops.LRC_PREFACTOR * c_mm, dtype) / box**3
@@ -342,89 +341,3 @@ def make_widom_fn(system, params, kvecs, kweights, dtype=jnp.float32,
         return jnp.mean(b, axis=-1)
 
     return widom_du, widom_sample
-
-
-def make_mega_widom_fn(system, params, kvecs, kweights, n_per_sweep,
-                       interpret=False):
-    """Kernel-speed Widom sampling: ONE whole-sweep Pallas mega-kernel
-    call runs a full displacement/rotation sweep AND n_per_sweep ghost
-    insertions per chain, all in VMEM (ops/pallas/sweep_kernel n_widom
-    — the in-kernel exchange evaluator with the state writes removed).
-
-    Returns widom_mega(state, seed) -> (state', b_mean):
-      state' — the SimState advanced by one valid NVT kernel sweep at
-      params.temperature / params.dr_max / params.dphi_max (the kernel
-      path ignores the per-chain adapted fields, like mc/gcmc_mol's
-      mega path).  The PRNG stream is seeded from state.step — the
-      SAME counter the plain sweep_full path uses — and each call
-      advances step by M + n_per_sweep, so streams stay disjoint from
-      each other AND from interleaved run_steps sweeps on the same
-      trajectory with no caller bookkeeping.  seed (optional int32)
-      is an EXTRA offset added to the step counter for callers running
-      decorrelated replicas off one state; mixing nonzero offsets with
-      step-seeded calls is the caller's responsibility (keep offsets
-      >> the total step range, e.g. 1e7 apart);
-      b_mean — (C,) mean Boltzmann factor <exp(-beta dU_ins)> over the
-      n_per_sweep ghost poses evaluated AFTER the sweep, ready for
-      `mu_excess(b_mean, params.temperature)`.
-
-    dU matches widom_du's model up to the kernel's f32 polynomial
-    approximations: the position-independent LRC increment is folded
-    in here, overlap-vetoed ghosts count exactly 0, and the
-    reference-Wolf constant uses the kernel's own-count rule (exact
-    for a single species).  Requires the mega-kernel envelope
-    (species-uniform, site cutoff), a single species block, and
-    ewald_surface off; mixtures use make_widom_fn's jnp path.
-    """
-    if int(n_per_sweep) < 1:
-        raise ValueError("n_per_sweep must be >= 1 (with 0 ghost "
-                         "insertions the builder would construct the "
-                         "8-argument sweep_act signature and the kernel "
-                         "call below would fail at trace time; use the "
-                         "plain mega sweep path for sampling-free sweeps)")
-    if params.ewald_surface:
-        raise ValueError("kernel Widom does not support the Ewald "
-                         "surface term (pose-dependent dipole delta)")
-    if len(system.species_slices) != 1:
-        raise ValueError("kernel Widom supports single-species systems; "
-                         "use make_widom_fn for mixtures")
-    from metropolismontecarlo_tpu.mc.moves import make_mega_sweep_fn
-    sweep_x = make_mega_sweep_fn(system, params, kvecs, kweights,
-                                 interpret=interpret, with_activity=True,
-                                 n_exch=0, n_widom=int(n_per_sweep))
-    ev = make_pose_eval(system, params, kvecs, kweights, jnp.float32)
-    M = system.n_mol
-    beta = 1.0 / float(params.temperature)
-    q2 = ev.q_t_tot**2
-    use_sfac = params.coulomb == "ewald"
-
-    @jax.jit
-    def widom_mega(state, seed=0):
-        seed = state.step.astype(jnp.int32) + jnp.asarray(seed, jnp.int32)
-        C = state.com.shape[0]
-        f32 = jnp.float32
-        box = state.box.astype(f32)
-        active = jnp.ones((C, M), bool)
-        si = jax.vmap(ev.self_intra)(box)
-        wc = jax.vmap(ev.wolf_const_coeff)(box) * q2
-        zact = jnp.ones((C,), f32)          # unread when n_exch == 0
-        chain_keys = state.key[:, 0].astype(jnp.int32)
-        (com, quat, coords, _act, sfac, d_e, acc, att,
-         wid) = sweep_x(state.com, state.quat, state.coords, active,
-                        box, state.sfac, chain_keys, seed, zact, si, wc)
-        lrc = jax.vmap(ev.lrc_delta)(box)
-        b_mean = (wid[:, 0, 0] / float(n_per_sweep)
-                  * jnp.exp(-beta * lrc))
-        dtype = state.com.dtype
-        pad1 = ((0, 0), (0, 1))             # [trans, rot] -> [t, r, vol]
-        state2 = state._replace(
-            com=com.astype(dtype), quat=quat.astype(dtype),
-            coords=coords.astype(dtype),
-            sfac=sfac.astype(dtype) if use_sfac else state.sfac,
-            energy=state.energy + d_e.astype(state.energy.dtype),
-            step=state.step + M + int(n_per_sweep),
-            acc=state.acc + jnp.pad(acc[:, :2].astype(jnp.int32), pad1),
-            att=state.att + jnp.pad(att[:, :2].astype(jnp.int32), pad1))
-        return state2, b_mean
-
-    return widom_mega

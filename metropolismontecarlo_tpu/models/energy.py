@@ -1,6 +1,6 @@
 """Full-system energy evaluation with component breakdown.
 
-The TPU-native analogue of the reference's six `potential(...)` overloads
+The data-parallel analogue of the reference's six `potential(...)` overloads
 (`Ewald/energy.jl:343-1032`): one function, dense masked pair grids, a
 dict of components.  Used for initialization, NIST golden validation,
 block-end drift checks, and NPT volume moves.  Per-move delta energies
@@ -58,9 +58,7 @@ def energy_breakdown(system, params, coords, com, box, kvecs=None, kweights=None
     charges = jnp.asarray(system.flat(system.charges), dtype)
     # (A, A) pair tables are expanded in NUMPY at trace time and embedded
     # as constants: a traced (A, A) table gather inside the chunked-vmap
-    # scan is NOT hoisted by XLA and costs ~70x the entire rest of the
-    # recompute on TPU (measured: 13.2 s vs 0.19 s per 2048-chain
-    # recompute, 750-water) — TPU gathers are that slow
+    # scan is NOT hoisted by XLA and is paid again at every scan step
     tid_np = np.asarray(tid)
     eps_t = jnp.asarray(system.eps_table, dtype)
     sig_t = jnp.asarray(system.sig_table, dtype)
@@ -200,18 +198,17 @@ def _energy_breakdown_tiled(system, params, coords, com, box, kvecs,
 
     Scans row blocks of B atoms against all A atoms: peak pair-grid
     memory O(B*A) instead of O(A^2).  Per-pair LJ parameters come from a
-    (B, T) gather x (T, A) one-hot matmul (MXU), never an (A, A) table.
+    (B, T) gather x (T, A) one-hot matmul, never an (A, A) table.
 
     row_shard=(axis_name, n_shards): tensor-parallel mode for use INSIDE
     shard_map — the row-block scan, the S(k) structure factor, and the
     reciprocal-virial contraction (the O(A^2) and O(K*A) work) are split
-    over the named mesh axis and psum-reduced over ICI; the O(A)
+    over the named mesh axis and psum-reduced; the O(A)
     assembly terms are computed replicated.  Every device returns the
     identical full breakdown.  This is the SURVEY section-2.2 "shard the
     pair tiles / (K, A) recip matmul" path for systems far beyond 10^4
     atoms; the per-move sweep stays chain-local by design (a per-move
-    psum would be ICI-latency-bound — sorted-slab windows are the
-    per-move answer, mc.moves.slab_config).
+    psum would be bound by interconnect latency).
     """
     if params.cutoff_mode != "site":
         raise NotImplementedError("tiled recompute supports site cutoff")

@@ -1,7 +1,7 @@
 """System description and simulation state.
 
 The reference holds its state in mutable StructArrays (`soa`/`moa`,
-`Ewald/structs.jl:283-321`) updated in place.  The TPU-native design splits
+`Ewald/structs.jl:283-321`) updated in place.  The data-parallel design splits
 that into:
 
 * `System` — static structure & force field (shapes, body frames, charge/
@@ -112,8 +112,9 @@ class System:
 
     @property
     def n_atoms_padded(self):
-        """Atom-axis storage width: n_atoms rounded up to a TPU lane
-        multiple.  Pad columns hold dummy atoms (molecule id -1, zero
+        """Atom-axis storage width: n_atoms rounded up to a multiple of
+        128 (256 from 256 atoms on), so the pair grids have a fixed,
+        aligned width.  Pad columns hold dummy atoms (molecule id -1, zero
         charge, pad LJ type) that every kernel excludes by mask."""
         gran = 256 if self.n_atoms >= 256 else 128
         return -(-self.n_atoms // gran) * gran
@@ -137,8 +138,7 @@ class System:
     @property
     def is_uniform(self):
         """True when every molecule shares one body/charge/type pattern
-        (enables the single-call mega kernel and static per-row work
-        flags).  Ragged mixtures are instead PER-SPECIES uniform — see
+        (required by the molecular open-ensemble apps).  Ragged mixtures are instead PER-SPECIES uniform — see
         species_slices."""
         if not self.uniform_width:
             return False
@@ -151,8 +151,8 @@ class System:
     @property
     def species_uniform(self):
         """True when every species block is internally uniform (one
-        body/charge/type template per block) — the mega-kernel
-        requirement.  Uniform single-species systems trivially qualify;
+        body/charge/type template per block) — required by the
+        multi-species open-ensemble apps.  Uniform single-species systems trivially qualify;
         blocks built by models.from_topology always do (one template
         per species)."""
         t = np.asarray(self.type_ids)
@@ -167,7 +167,7 @@ class System:
 
     @property
     def tid_row_padded(self):
-        """(A_pad,) per-atom LJ type id; -1 marks lane padding."""
+        """(A_pad,) per-atom LJ type id; -1 marks padding."""
         out = np.full(self.n_atoms_padded, -1, np.int64)
         out[: self.n_atoms] = self.flat(self.type_ids)
         return out
@@ -206,7 +206,7 @@ class RunParams:
     # Ewald surface (dipole) term, removing the tinfoil-boundary
     # assumption: + factor 2pi/(3V) |sum_i q_i r_i|^2 (vacuum epsilon'=1;
     # the reference's written-but-disabled `TinfoilBoundary`,
-    # `Ewald/ewalds.jl:835-844`).  jnp move path only (kernels off).
+    # `Ewald/ewalds.jl:835-844`).
     ewald_surface: bool = False
     kappa_L: float = 5.6              # Ewald/Wolf damping: kappa = kappa_L / box
     nk: int = 5                       # Ewald k-space range
@@ -227,23 +227,11 @@ class RunParams:
     # lists rebuild every sweep with radius max(r_cut, qq_cut) +
     # nlist_skin + 2*max-atom-to-COM-distance; exact while
     # dr_max <= nlist_skin/2, and overflow is detected at block
-    # boundaries.  MEASURED on TPU v5e: per-chain dynamic gathers are
-    # ~20x SLOWER than the dense Pallas kernels, so this is a
-    # correctness-validated reference implementation; the TPU-native
-    # sparsity plan is spatially SORTED molecule storage (contiguous
-    # neighbor slabs), future work.
+    # boundaries.  Per-chain dynamic gathers trade the dense scan's
+    # regular memory access for fewer pairs; whether that pays on a
+    # given device is a measurement, not an assumption.
     nlist_width: int = 0
     nlist_skin: float = 2.0
-    # TPU-native sparsity for the mega path: per-chain z-sorted molecule
-    # storage of the LAST (largest) species block, so each move's pair
-    # scan reads a static, 128-aligned window of atom lanes (plus a halo
-    # of head-replica ghost columns for periodic wrap) instead of all
-    # A_pad lanes.  "auto" enables it when the window saves >= 30% of the
-    # block; "force"/"off" override.  Window staleness is bounded by
-    # slab_skin (dr_max is capped at it when active) and guarded by a
-    # per-sort coverage check at block boundaries.
-    slab_mode: str = "auto"           # "auto" | "off" | "force"
-    slab_skin: float = 1.0            # sort-staleness margin, Angstrom
 
     # Minimum-image discipline (reference asserts r_cut <= box/2 at
     # startup, `Ewald/main.jl:483-485`).  True: init raises if violated
@@ -264,9 +252,9 @@ class SimState(NamedTuple):
     com: jnp.ndarray        # (C, M, 3) molecular centers of mass
     quat: jnp.ndarray       # (C, M, 4) orientations
     coords: jnp.ndarray     # (C, 3, A) atom positions, TRANSPOSED layout:
-                            #   atoms on the minor (lane) axis so dense
-                            #   pair grids and Pallas tiles are (8,128)-
-                            #   shaped without padding waste (A = M*P)
+                            #   atoms on the minor (contiguous) axis so
+                            #   dense pair grids read coalesced rows
+                            #   (A = n_atoms_padded)
     box: jnp.ndarray        # (C,) box edge length
     sfac: jnp.ndarray       # (C, K, 2) Ewald structure factors ([re, im]); (C,1,2) dummy otherwise
     energy: jnp.ndarray     # (C,) running total potential energy (K)

@@ -345,7 +345,7 @@ class StructureFactorAccumulator:
         S(k) = <|sum_j exp(i k.r_j)|^2> / N_sel,   k = (2 pi / L) n
 
     radially averaged over integer shells |n|^2.  Uses the same
-    MXU-shaped phase matmuls as the Ewald module (ops.ewald.
+    phase matmuls as the Ewald module (ops.ewald.
     structure_factor with unit weights, precision=HIGHEST — bf16 phases
     are O(0.1 rad) wrong).  Beyond-parity observable (the reference has
     no S(k) machinery); complements the RDF: exact closed forms exist

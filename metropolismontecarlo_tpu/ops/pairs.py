@@ -2,8 +2,8 @@
 
 The reference evaluates pair energies with early-exit scalar loops over
 molecules with a molecular center-of-mass cutoff prefilter
-(`Ewald/energy.jl:242-287`, `Ewald/ewalds.jl:293-376`).  On TPU the
-equivalent is a dense distance grid with a multiplicative include-mask:
+(`Ewald/energy.jl:242-287`, `Ewald/ewalds.jl:293-376`).  On an
+accelerator the equivalent is a dense distance grid with a multiplicative include-mask:
 every pair is computed, excluded pairs contribute exactly zero.  Masks are
 built so that no excluded pair can produce inf/nan before masking.
 
@@ -53,9 +53,9 @@ def full_pair_mask(coords, com, n_mol, box, r_cut, mode, mol_id=None):
         d2m = min_image_dist2(com[:, None, :], com[None, :, :], box)
         mcut = d2m < r_cut * r_cut
         # expand (M, M) -> (A, A) via one-hot matmuls, NOT mcut[mol_id]
-        # [:, mol_id]: a traced (A, A) gather costs ~100x the matmul on
-        # TPU (see models/energy.py pair-table note).  Each output picks
-        # exactly one 0/1 element, so any matmul precision is exact.
+        # [:, mol_id] (a traced (A, A) gather; see models/energy.py
+        # pair-table note).  Each output picks exactly one 0/1 element,
+        # so any matmul precision is exact.
         onehot = (mol_id[:, None] == jnp.arange(mcut.shape[0])[None, :]) \
             .astype(coords.dtype)
         incl = inter & ((onehot @ (mcut.astype(coords.dtype) @ onehot.T))

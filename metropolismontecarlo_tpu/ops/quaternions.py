@@ -59,8 +59,8 @@ def quat_to_rot(q):
 def rotate_vectors(q, v):
     """Rotate body-frame vectors v (..., P, 3) by quaternions q (..., 4).
 
-    HIGHEST precision: the default bf16 TPU matmul would distort rigid
-    geometry by ~0.4% per rebuild."""
+    HIGHEST precision: a reduced-precision f32 matmul (bf16 or TF32
+    passes) would distort rigid geometry by ~0.4% per rebuild."""
     rot = quat_to_rot(q)
     return jnp.einsum("...ij,...pj->...pi", rot, v,
                       precision=jax.lax.Precision.HIGHEST)

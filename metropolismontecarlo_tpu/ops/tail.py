@@ -30,9 +30,8 @@ def mol_tail_coeff(tvec_a, tvec_b, eps_table, sig_table, r_cut):
                                     - (sigma_ab/r_cut)^3 ]
 
     — U_lrc is QUADRATIC in the molecule counts, which makes every
-    exchange/transfer/flip delta affine in N and lets the in-kernel
-    acceptance paths carry it through the same (si, wc) constant lanes
-    as the reference-Wolf c*Q^2 term (`mc/widom.py:wolf_const_coeff`).
+    exchange/transfer/flip delta affine in N, like the reference-Wolf
+    c*Q^2 term (`mc/widom.py:wolf_const_coeff`).
     The fluctuating-N ensembles (gcmc/gibbs/semigrand/tmmc families)
     use this; fixed-N code uses `lrc_energy` directly.  Exactly
     consistent: lrc_energy(sum_s N_s t_s, ...) ==

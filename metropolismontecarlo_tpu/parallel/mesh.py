@@ -1,16 +1,17 @@
 """Device-mesh scale-out for chain-parallel MC.
 
 The reference is a serial single-process code (SURVEY.md section 2.2); the
-TPU-native scaling story is data parallelism over independent chains:
+scaling story here is data parallelism over independent chains:
 
 * a 1-D `jax.sharding.Mesh` over the "chains" axis,
 * every SimState field with a leading C axis sharded over it,
 * the move/sweep kernels are chain-local, so the hot loop runs with ZERO
   cross-device traffic — XLA propagates the sharding through `lax.scan`,
 * pooled observables (`psum`-style means) and replica exchange
-  (`ppermute`, parallel.remc) ride the ICI when communication is needed.
+  (`ppermute`, parallel.remc) use the interconnect when communication is
+  needed.
 
-Works identically on real multi-chip TPU slices and on the CPU fake mesh
+Works identically on a multi-GPU host and on the CPU virtual-device mesh
 (`--xla_force_host_platform_device_count=N`) used in tests.
 """
 
@@ -25,20 +26,16 @@ CHAINS = "chains"
 def make_mesh(n_devices=None, devices=None):
     """1-D mesh over the chains axis.
 
-    Falls back to the CPU backend's virtual devices when the default
-    backend has fewer devices than requested (the single-real-chip +
-    `--xla_force_host_platform_device_count=N` development setup).
+    Raises when the default backend has fewer devices than requested;
+    it never substitutes another platform's devices.
     """
     if devices is None:
         devices = jax.devices()
         want = n_devices or len(devices)
         if len(devices) < want:
-            try:
-                cpus = jax.devices("cpu")
-            except RuntimeError:
-                cpus = []
-            if len(cpus) >= want:
-                devices = cpus
+            raise ValueError(
+                f"make_mesh: {want} devices requested, the "
+                f"{jax.default_backend()} backend has {len(devices)}")
         devices = devices[:want]
     return Mesh(np.asarray(devices), (CHAINS,))
 
@@ -63,7 +60,7 @@ def shard_state(state, mesh):
 
 def pooled_mean(x, axis=0):
     """Cross-chain mean; under jit over a sharded array XLA lowers the
-    reduction to an all-reduce over ICI."""
+    reduction to an all-reduce."""
     return jnp.mean(x, axis=axis)
 
 
@@ -86,10 +83,8 @@ def sharded_run_steps(mc, state, mesh, n_steps, adjust=False,
     shard_map: each device advances its own chains independently (the MC
     hot loop is chain-local, so there are no collectives).
 
-    This is REQUIRED for the Pallas kernels on multi-chip slices —
-    auto-sharding cannot partition a pallas_call, but under shard_map
-    each device runs the kernel on its local shard.  The jnp path works
-    under both; results match unsharded runs bitwise.
+    Results match unsharded runs of the same chains bitwise on the CPU
+    mesh (tests/test_parallel.py).
 
     remc_every > 0 interleaves replica-exchange rounds (alternating
     even/odd phases starting at phase0) every remc_every sweeps, using

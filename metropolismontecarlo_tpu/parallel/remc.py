@@ -3,7 +3,7 @@
 The reference lists REMC as an unimplemented TODO (`Ewald/main.jl:55`,
 `Ewald/readme.md:16`); here it is the framework's multi-device
 communication showcase: replicas live along the sharded chains axis, and
-the partner gathers lower to ICI collective-permutes when neighbours
+the partner gathers lower to collective-permutes when neighbours
 straddle device boundaries.
 
 Ladder layout: chain c holds temperature T_c (SimState.temp).  An
@@ -75,8 +75,8 @@ def exchange_shardlocal(state, key, phase, n_devices, axis_name="chains"):
     chain axis is sharded over `n_devices` contiguous blocks.
 
     Partner values for the two boundary chains of each local block come
-    from explicit `jax.lax.ppermute` edge swaps over the device ring (ICI
-    neighbours on a TPU slice); everything else is local.  Matches the
+    from explicit `jax.lax.ppermute` edge swaps over the device ring;
+    everything else is local.  Matches the
     unsharded `exchange` bitwise: same global pair ids, same fold_in
     draws, same accept rule (tests/test_parallel.py).
 

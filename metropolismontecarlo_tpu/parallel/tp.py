@@ -8,22 +8,20 @@ module splits exactly that work over a second mesh axis:
 
 * 2-D `Mesh` over ("chains", "atoms"): chains shard as before, and each
   chain's recompute row-blocks + S(k)/recip-virial contractions split
-  over the atoms axis with `psum` partial reductions riding the ICI
-  (models.energy._energy_breakdown_tiled row_shard mode).
+  over the atoms axis with `psum` partial reductions over the
+  interconnect (models.energy._energy_breakdown_tiled row_shard mode).
 * The per-move sweep stays chain-local BY DESIGN: a per-move psum would
-  serialize on ICI latency every move; TPU-native per-move sparsity is
-  the sorted-slab window (mc.moves.slab_config) instead.
+  serialize on interconnect latency every move.
 
 The reference has no counterpart (serial Julia; its scaling TODO is the
 neighbor list, `Ewald/readme.md:21`) — this is the SURVEY section-2.2
 "shard the (K, A) recip matmul / pair tiles" item.
 
-Works on real multi-chip slices and on the CPU fake mesh used in tests;
-results match the unsharded recompute to roundoff.
+Works on multi-device hosts and on the CPU virtual-device mesh used in
+tests; results match the unsharded recompute to roundoff.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
@@ -36,17 +34,16 @@ ATOMS = "atoms"
 
 def make_mesh_2d(n_chain_shards, n_atom_shards, devices=None):
     """(chains x atoms) mesh.  Adjacent devices share the atoms axis so
-    the per-recompute psums ride the fastest ICI links."""
+    the per-recompute psums stay between neighbours.  Raises when the
+    backend has fewer devices than the mesh needs (never substitutes
+    another platform's devices)."""
     if devices is None:
         devices = jax.devices()
     need = n_chain_shards * n_atom_shards
     if len(devices) < need:
-        try:
-            cpus = jax.devices("cpu")
-        except RuntimeError:
-            cpus = []
-        if len(cpus) >= need:
-            devices = cpus
+        raise ValueError(
+            f"a {n_chain_shards}x{n_atom_shards} mesh needs {need} devices; "
+            f"the {jax.default_backend()} backend has {len(devices)}")
     devices = np.asarray(devices[:need]).reshape(
         n_chain_shards, n_atom_shards)
     return Mesh(devices, (CHAINS, ATOMS))

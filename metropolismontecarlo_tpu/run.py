@@ -28,6 +28,7 @@ from metropolismontecarlo_tpu.observables import BlockAverager, RDFAccumulator
 # silently rewired every later CLI run in a shard to a zero-charge LJ
 # system; see tests/test_gibbs_binary.py::test_cli_gibbs_binary_end_to_end).
 from metropolismontecarlo_tpu.utils import config as _config
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache
 from metropolismontecarlo_tpu.utils.config import (
     build_params,
     load_config,
@@ -98,8 +99,7 @@ def _run_gcmc(cfg, system, params, dtype, args):
                        activities=tuple(float(z)
                                         for z in ens["activities"]),
                        p_exchange=float(ens.get("p_exchange", 0.4)),
-                       dtype=dtype, n_orient=int(ens.get("n_orient", 1)),
-                       mega=ens.get("mega"))
+                       dtype=dtype, n_orient=int(ens.get("n_orient", 1)))
         state = g.init(jax.random.PRNGKey(int(run_cfg.get("seed", 0))),
                        box=float(ens["box"]),
                        n_init=tuple(int(n) for n in ens["n_init"]),
@@ -131,8 +131,7 @@ def _run_gcmc(cfg, system, params, dtype, args):
                              "does not support cavity bias yet")
         g = OsmoticGCMC(system, params, activity=float(ens["activity"]),
                         p_exchange=float(ens.get("p_exchange", 0.3)),
-                        dtype=dtype, n_orient=int(ens.get("n_orient", 1)),
-                        mega=ens.get("mega"))
+                        dtype=dtype, n_orient=int(ens.get("n_orient", 1)))
     elif system.atoms_per_mol > 1:
         from metropolismontecarlo_tpu.mc.gcmc_mol import MolGCMC
         if int(ens["capacity"]) != system.n_mol:
@@ -143,8 +142,7 @@ def _run_gcmc(cfg, system, params, dtype, args):
         g = MolGCMC(system, params, activity=float(ens["activity"]),
                     p_exchange=float(ens.get("p_exchange", 0.3)),
                     dtype=dtype, n_orient=int(ens.get("n_orient", 1)),
-                    bias=ens.get("bias", "orientation"),
-                    mega=ens.get("mega"))
+                    bias=ens.get("bias", "orientation"))
     else:
         from metropolismontecarlo_tpu.mc.gcmc import GCMC
         unsupported = {"p_exchange", "n_orient", "bias"} & set(ens)
@@ -154,8 +152,7 @@ def _run_gcmc(cfg, system, params, dtype, args):
                 "molecular (P > 1) GCMC; the monatomic app splits "
                 "moves by params.p_translate and needs no orientations")
         g = GCMC(system, params, activity=float(ens["activity"]),
-                 capacity=int(ens["capacity"]), dtype=dtype,
-                 mega=ens.get("mega"))
+                 capacity=int(ens["capacity"]), dtype=dtype)
     state = g.init(jax.random.PRNGKey(int(run_cfg.get("seed", 0))),
                    box=float(ens["box"]), n_init=int(ens["n_init"]),
                    n_chains=int(run_cfg.get("n_chains", 8)))
@@ -244,16 +241,14 @@ def _run_tmmc(cfg, system, params, dtype, args):
                 f"equal ensemble capacity ({ens['capacity']})")
         t = TMMCMol(system, params, activity=float(ens["activity"]),
                     p_exchange=float(ens.get("p_exchange", 0.3)),
-                    dtype=dtype, n_orient=int(ens.get("n_orient", 1)),
-                    mega=ens.get("mega"))
+                    dtype=dtype, n_orient=int(ens.get("n_orient", 1)))
     else:
         if "melt_blocks" in ens:
             raise ValueError("melt_blocks applies only to molecular "
                              "TMMC (monatomic lattice starts relax "
                              "within the first block)")
         t = TMMC(system, params, activity=float(ens["activity"]),
-                 capacity=int(ens["capacity"]), dtype=dtype,
-                 mega=ens.get("mega"))
+                 capacity=int(ens["capacity"]), dtype=dtype)
     n_init = ens["n_init"]
     if isinstance(n_init, (list, tuple)):
         lo, hi = n_init
@@ -277,7 +272,7 @@ def _run_tmmc(cfg, system, params, dtype, args):
     if melt:
         from metropolismontecarlo_tpu.mc.gcmc_mol import MolGCMC
         g0 = MolGCMC(system, params, activity=float(ens["activity"]),
-                     p_exchange=0.0, dtype=dtype, mega=ens.get("mega"))
+                     p_exchange=0.0, dtype=dtype)
         for block in range(melt):
             state, stats = g0.run_block(state, n_steps)
             if not args.quiet:
@@ -341,8 +336,7 @@ def _run_semigrand(cfg, system, params, dtype, args):
     g = Semigrand(system, params,
                   fugacity_ratio=float(ens["fugacity_ratio"]),
                   p_flip=float(ens.get("p_flip", 0.3)), dtype=dtype,
-                  n_orient=int(ens.get("n_orient", 1)),
-                  mega=ens.get("mega"))
+                  n_orient=int(ens.get("n_orient", 1)))
     state = g.init(jax.random.PRNGKey(int(run_cfg.get("seed", 0))),
                    box=float(ens["box"]), n_a=int(ens["n_a"]),
                    n_b=int(ens["n_b"]),
@@ -411,7 +405,6 @@ def _run_gibbs(cfg, system, params, dtype, args):
             system, params, dv_max=float(ens.get("dv_max", 0.03)),
             p_transfer=float(ens.get("p_transfer", 0.3)), dtype=dtype,
             n_orient=int(ens.get("n_orient", 1)),
-            mega=ens.get("mega"),
             npt_pressure=float(npt_p) if npt_p is not None else None)
         state = g.init(jax.random.PRNGKey(int(run_cfg.get("seed", 0))),
                        boxes=tuple(float(b) for b in ens["boxes"]),
@@ -429,8 +422,7 @@ def _run_gibbs(cfg, system, params, dtype, args):
                              dv_max=float(ens.get("dv_max", 0.03)),
                              p_transfer=float(ens.get("p_transfer", 0.3)),
                              dtype=dtype,
-                             n_orient=int(ens.get("n_orient", 1)),
-                             mega=ens.get("mega"))
+                             n_orient=int(ens.get("n_orient", 1)))
     else:
         from metropolismontecarlo_tpu.mc.gibbs import GibbsEnsemble
         unsupported = {"p_transfer", "n_orient"} & set(ens)
@@ -441,7 +433,7 @@ def _run_gibbs(cfg, system, params, dtype, args):
                 "moves by params.p_translate and needs no orientations")
         g = GibbsEnsemble(system, params, capacity=int(ens["capacity"]),
                           dv_max=float(ens.get("dv_max", 0.03)),
-                          dtype=dtype, mega=ens.get("mega"))
+                          dtype=dtype)
     if not binary:
         state = g.init(jax.random.PRNGKey(int(run_cfg.get("seed", 0))),
                        boxes=tuple(float(b) for b in ens["boxes"]),
@@ -503,6 +495,7 @@ def main(argv=None):
     ap.add_argument("--resume", help="checkpoint .npz to resume from")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     cfg = load_config(args.config)
     base_dir = os.path.dirname(os.path.abspath(args.config))
@@ -664,12 +657,6 @@ def main(argv=None):
             state = state._replace(
                 temp=jnp.full_like(state.temp, params.temperature))
         state, metrics = mc.run_block(state, n_steps, adjust=adjust)
-        if block == equil - 1:
-            # equilibrated: re-size the sorted-slab windows from the
-            # actual fluid structure (lattice-start z-clumps force
-            # conservative windows at init; smaller W = faster sweeps).
-            # No-op when slabs are off or the width doesn't change.
-            state = mc.retune_slabs(state)
         if remc_cfg:
             from metropolismontecarlo_tpu.parallel.remc import exchange
             xkey = jax.random.fold_in(

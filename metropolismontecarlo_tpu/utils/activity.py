@@ -1,19 +1,18 @@
 """Activity-mask slot updates as one-hot where-selects.
 
 NEVER use a dynamic `.at[i].set(...)` scatter on the bool activity
-mask inside the fused vmapped step scans: XLA:TPU was caught DROPPING
-such a scatter (round 5) — the insertion's com write and energy delta
+mask inside the fused vmapped step scans: an XLA backend was caught
+DROPPING such a scatter — the insertion's com write and energy delta
 were applied while the activity bit silently stayed False, leaving a
 phantom booked energy that surfaced as O(pair-energy) carried-vs-
 recompute drift accumulating over exchanges.  A CPU replay of the
 identical step (same threefry stream, same f32 state) disagreed with
-the TPU execution, isolating a backend miscompilation of the
+the accelerator execution, isolating a backend miscompilation of the
 bool-scatter + gather pattern in that fusion context; the isolated
 pattern compiles correctly, so the trigger is fusion-dependent and the
 only robust fix is to avoid the construct.  One-hot where-selects are
 also the repo's stated design idiom ("accept/reject via jnp.where
 selects only") and cost one masked vector op at slot capacities.
-See docs/perf.md "TPU bool-scatter hazard" for the incident record.
 """
 
 import jax.numpy as jnp

@@ -116,12 +116,17 @@ def build_system(cfg, base_dir="."):
             system_from_topology,
             templates_from_pdbs,
         )
-        top = read_top(os.path.join(base_dir, model["top"]),
-                       defines=model.get("defines", ()))
-        templates = templates_from_pdbs(top, {
-            k: os.path.join(base_dir, v)
-            for k, v in model["templates"].items()
-        })
+        top_path = os.path.join(base_dir, model["top"])
+        pdbs = {k: os.path.join(base_dir, v)
+                for k, v in model["templates"].items()}
+        for path in [top_path, *pdbs.values()]:
+            if not os.path.isfile(path):
+                raise FileNotFoundError(
+                    f"topology model input {path} does not exist; this "
+                    "configuration needs the GROMACS topology and its PDB "
+                    "templates")
+        top = read_top(top_path, defines=model.get("defines", ()))
+        templates = templates_from_pdbs(top, pdbs)
         molecules = [tuple(x) for x in model["molecules"]] \
             if "molecules" in model else None
         return system_from_topology(top, templates, molecules=molecules,

@@ -11,11 +11,11 @@ import sys
 import time
 
 BANNER = r"""
- __  __  ___ __  __  ___   _____ ___ _   _
-|  \/  |/ __|  \/  |/ __| |_   _| _ \ | | |
-| |\/| | (__| |\/| | (__    | | |  _/ |_| |
-|_|  |_|\___|_|  |_|\___|   |_| |_|  \___/
- Metropolis Monte Carlo, TPU-native (JAX/Pallas)
+ __  __  ___ __  __  ___
+|  \/  |/ __|  \/  |/ __|
+| |\/| | (__| |\/| | (__
+|_|  |_|\___|_|  |_|\___|
+ Metropolis Monte Carlo, data-parallel (JAX)
 """
 
 

@@ -84,7 +84,8 @@ def breakdown(path, cutoff_mode, strict, site_cutoff_lj, site_cutoff_real):
                 self=e_self, intra=e_intra, total=tot)
 
 
-ref = "/root/reference/Ewald/spce_sample_config_periodic%d.txt"
+ref = os.path.join(os.environ.get("MMC_REFERENCE_DIR", "reference"),
+                   "Ewald", "spce_sample_config_periodic%d.txt")
 import sys
 paths = {1: ref % 1, 2: ref % 2, 3: ref % 3, 4: ref % 4}
 for c in [1, 2, 3, 4]:

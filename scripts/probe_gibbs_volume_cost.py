@@ -1,16 +1,12 @@
-"""Measure the jnp Gibbs volume-move cost at production p_volume (TPU).
+"""Measure the Gibbs volume-move cost at production p_volume.
 
-Round-4 verdict weak item 3: the decision to keep Gibbs volume
-exchanges on the jnp full-recompute path was justified by an ESTIMATE
-("~4% of the NPT-bench-style cycle").  This probe measures it: the
-bench Gibbs config (cap-128 SPC/E x 2 boxes, mega='full' in-kernel
-transfers) timed over identical cycle counts with the production
-volume cadence (p_volume = 0.01, the gibbs_water artifact setting)
-vs p_volume = 0 — the difference is the volume-move share of cycle
-wall.  If > ~10%, in-kernel volume moves are worth building; else
-record the number in docs/perf.md and close CLAUDE.md idea 5.
+Gibbs volume exchanges are full-recompute moves.  This probe measures
+their share of the run: the bench Gibbs config (cap-128 SPC/E x 2
+boxes) timed over identical attempt counts with the production volume
+cadence (p_volume = 0.01, the gibbs_water artifact setting) vs
+p_volume = 0 — the difference is the volume-move share of the wall.
 
-Run on TPU: python scripts/probe_gibbs_volume_cost.py
+Run on a GPU: python scripts/probe_gibbs_volume_cost.py
 """
 
 import os
@@ -21,19 +17,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("MMC_CACHE", "/tmp/mmc_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import dataclasses
-
 import jax.numpy as jnp
 
 from metropolismontecarlo_tpu.mc.gibbs_mol import make_gibbs_mol
 from metropolismontecarlo_tpu.models.system import RunParams
 from metropolismontecarlo_tpu.models.water import spce_system
 from metropolismontecarlo_tpu.ops.ewald import tune_parameters
+from metropolismontecarlo_tpu.utils.cache import enable_compile_cache
 
 N_CHAINS = int(os.environ.get("PROBE_CHAINS", 512))
 CYCLES = int(os.environ.get("PROBE_CYCLES", 8))
@@ -54,7 +44,7 @@ def build(p_volume, chunk=8):
                        strict_min_image=False)
     init, run_steps = make_gibbs_mol(
         spce_system(cap), params, dv_max=0.03, p_transfer=px,
-        dtype=jnp.float32, mega="full", chunk=chunk)[:2]
+        dtype=jnp.float32, chunk=chunk)[:2]
     st = init(jax.random.PRNGKey(0), boxes=(box_l, box_v),
               n_init=(n_l, n_v), n_chains=N_CHAINS)
     x_per = max(1, int(round(2 * cap * px / (1.0 - px))))
@@ -79,6 +69,7 @@ def time_one(p_volume, chunk=8):
 
 
 def main():
+    enable_compile_cache()
     print(f"device: {jax.devices()[0].device_kind}, {N_CHAINS} chains, "
           f"{CYCLES} cycles/call")
     dt_off, c_off, att = time_one(0.0)

@@ -21,14 +21,15 @@ shard() {
 shard a tests/test_fep.py tests/test_gcmc.py tests/test_gcmc_binary.py \
     tests/test_gcmc_mol.py tests/test_gcmc_osmotic.py \
     tests/test_gibbs.py tests/test_gibbs_binary.py \
-    tests/test_gibbs_mol.py tests/test_io_observables.py
+    tests/test_gibbs_mol.py tests/test_io_observables.py \
+    tests/test_cache.py tests/test_chip_smoke.py
 shard b tests/test_linear.py tests/test_lrc_exchange.py \
     tests/test_mbar.py tests/test_mc.py \
     tests/test_mixture.py tests/test_nist_golden.py tests/test_ops.py \
-    tests/test_pallas_kernel.py
+    tests/test_reference.py tests/test_configs.py
 shard c tests/test_parallel.py tests/test_polyatomic.py \
-    tests/test_semigrand.py tests/test_slabs.py tests/test_tip4p.py \
+    tests/test_semigrand.py tests/test_tip4p.py \
     tests/test_tmmc.py tests/test_tmmc_mol.py tests/test_topology.py \
     tests/test_widom.py tests/test_wolf_ref_surface.py \
-    tests/test_wolf_vs_ewald_rdf.py
+    tests/test_wolf_vs_ewald_rdf.py tests/test_trace.py tests/test_gpu.py
 exit $fail

@@ -84,7 +84,7 @@ def test_insertion_deletion_reciprocity_water(kw):
     com_t = jnp.asarray([3.3, 7.1, 9.2], F64)
     quat_t = random_quaternion(jax.random.PRNGKey(101), (), F64)
 
-    mc8 = MonteCarlo(sys8, params, dtype=F64, pallas=False,
+    mc8 = MonteCarlo(sys8, params, dtype=F64,
                      recompute_chunk=1)
     body = jnp.asarray(np.asarray(sys8.body), F64)
     coords8 = (com8[:, None, :] + rotate_vectors(quat8, body)).reshape(-1, 3)
@@ -102,7 +102,7 @@ def test_insertion_deletion_reciprocity_water(kw):
     coords9 = jnp.concatenate(
         [state8.coords[0, :, : sys8.n_atoms].T, ra_t], axis=0)
     com9 = jnp.concatenate([com8, com_t[None, :]], axis=0)
-    mc9 = MonteCarlo(sys9, params, dtype=F64, pallas=False,
+    mc9 = MonteCarlo(sys9, params, dtype=F64,
                      recompute_chunk=1)
     state9 = mc9.init_from_coords(jax.random.PRNGKey(0), coords9, com9,
                                   box=box, n_chains=1)
@@ -123,7 +123,7 @@ def test_insertion_deletion_reciprocity_lj():
                        r_cut=2.5, coulomb="none", use_lrc=True)
     com_n = jnp.asarray(cubic_lattice(n, box), F64)
     com_t = jnp.asarray([0.71, 2.9, 4.13], F64)
-    mc_n = MonteCarlo(lj_system(n), params, dtype=F64, pallas=False,
+    mc_n = MonteCarlo(lj_system(n), params, dtype=F64,
                       recompute_chunk=1)
     s_n = mc_n.init_state(jax.random.PRNGKey(0), com_n, box=box, n_chains=1)
     widom_du, _ = make_widom_fn(lj_system(n), params, None, None,
@@ -132,7 +132,7 @@ def test_insertion_deletion_reciprocity_lj():
     du_ins, _ = widom_du(s_n, com_t[None, None, :], quat_t)
 
     com_n1 = jnp.concatenate([com_n, com_t[None, :]], axis=0)
-    mc_n1 = MonteCarlo(lj_system(n + 1), params, dtype=F64, pallas=False,
+    mc_n1 = MonteCarlo(lj_system(n + 1), params, dtype=F64,
                        recompute_chunk=1)
     s_n1 = mc_n1.init_from_coords(jax.random.PRNGKey(0), com_n1, com_n1,
                                   box=box, n_chains=1)
@@ -217,11 +217,11 @@ def _water9_states(kw, lj_scale, q_scale):
     com9 = jnp.concatenate([com8, com_t[None, :]], axis=0)
     quat9 = jnp.concatenate([quat8, quat_t[None, :]], axis=0)
 
-    mc_l = MonteCarlo(sys_tag, params, dtype=F64, pallas=False,
+    mc_l = MonteCarlo(sys_tag, params, dtype=F64,
                       recompute_chunk=1)
     state_l = mc_l.init_state(jax.random.PRNGKey(0), com9, quat=quat9,
                               box=box, n_chains=1)
-    mc_0 = MonteCarlo(sys_0, params, dtype=F64, pallas=False,
+    mc_0 = MonteCarlo(sys_0, params, dtype=F64,
                       recompute_chunk=1)
     # park the lambda=0 state's inert tagged molecule SOMEWHERE ELSE:
     # ghost insertions must exclude it, so its pose cannot matter
@@ -243,7 +243,7 @@ def test_tagged_full_coupling_is_identity():
     tagged = tag_last_molecule(base, 1.0, 1.0)
     e = []
     for system in (base, tagged):
-        mc = MonteCarlo(system, params, dtype=F64, pallas=False,
+        mc = MonteCarlo(system, params, dtype=F64,
                         recompute_chunk=1)
         st = mc.init_state(jax.random.PRNGKey(0), com, quat=quat,
                            box=box, n_chains=1)
@@ -261,7 +261,7 @@ def test_tagged_decoupled_is_rest_system():
                        r_cut=5.0, cutoff_mode="site", coulomb="ewald")
     com8 = jnp.asarray(cubic_lattice(m, box), F64)
     quat8 = random_quaternion(jax.random.PRNGKey(5), (m,), F64)
-    mc8 = MonteCarlo(spce_system(m), params, dtype=F64, pallas=False,
+    mc8 = MonteCarlo(spce_system(m), params, dtype=F64,
                      recompute_chunk=1)
     st8 = mc8.init_state(jax.random.PRNGKey(0), com8, quat=quat8,
                          box=box, n_chains=1)
@@ -271,7 +271,7 @@ def test_tagged_decoupled_is_rest_system():
     com9 = jnp.concatenate([com8, com8[:1]], axis=0)
     quat9 = jnp.concatenate(
         [quat8, random_quaternion(jax.random.PRNGKey(7), (1,), F64)], axis=0)
-    mc0 = MonteCarlo(sys_0, params, dtype=F64, pallas=False,
+    mc0 = MonteCarlo(sys_0, params, dtype=F64,
                      recompute_chunk=1)
     st0 = mc0.init_state(jax.random.PRNGKey(0), com9, quat=quat9,
                          box=box, n_chains=1)
@@ -424,7 +424,7 @@ def test_lambda_basis_decomposition_exact():
 
     def work_at(lj, q):
         s = tag_last_molecule(spce_system(9), lj, q)
-        mc = MonteCarlo(s, params, dtype=F64, pallas=False,
+        mc = MonteCarlo(s, params, dtype=F64,
                         recompute_chunk=1)
         return float(make_deletion_fn(
             s, params, mc.kvecs, mc.kweights, dtype=F64, chunk=1,
@@ -451,7 +451,7 @@ def test_cross_lambda_deletion_consistency():
     (params, sys_a, mc_a, state_a, _mc0, _st0, _c,
      _q) = _water9_states(dict(coulomb="ewald"), 0.7, 0.4)
     sys_b = tag_last_molecule(spce_system(9), 1.0, 0.9)
-    mc_b = MonteCarlo(sys_b, params, dtype=F64, pallas=False,
+    mc_b = MonteCarlo(sys_b, params, dtype=F64,
                       recompute_chunk=1)
     state_b = mc_b.init_state(jax.random.PRNGKey(0), state_a.com[0],
                               quat=state_a.quat[0],
@@ -465,29 +465,19 @@ def test_cross_lambda_deletion_consistency():
     assert float(d_b[0, 0] - d_a[0, 0]) == pytest.approx(de, rel=1e-10)
 
 
-def test_tag_last_molecule_ragged_mixture(reference_dir):
+def test_tag_last_molecule_ragged_mixture():
     """Solvation free energies in MIXTURES: tagging the last molecule of
-    a ragged MEA-in-water system (11-atom solute after 3-atom waters)
-    must reproduce the full system at lambda = (1,1) and the pure-water
-    rest system at lambda = (0,0), and the cross-lambda deletion works
-    must telescope to the independent energy difference."""
-    import os
+    a ragged TIP4P/2005-in-SPC/E system (4-site solute after 3-site
+    waters) must reproduce the full system at lambda = (1,1) and the
+    pure-water rest system at lambda = (0,0), and the cross-lambda
+    deletion works must telescope to the independent energy difference."""
+    from metropolismontecarlo_tpu.models.mixture import mixture_system
+    from metropolismontecarlo_tpu.models.water import tip4p2005_system
 
-    from metropolismontecarlo_tpu.io.topology import read_top
-    from metropolismontecarlo_tpu.models.from_topology import (
-        system_from_topology,
-        templates_from_pdbs,
-    )
-
-    top = read_top(os.path.join(reference_dir, "topol.top"))
-    templates = templates_from_pdbs(top, {
-        "MEA_DUMMY": os.path.join(reference_dir, "mea.pdb"),
-        "SOL": os.path.join(reference_dir, "tip3p.pdb")})
     n_sol = 12
-    full = system_from_topology(
-        top, templates, molecules=[("SOL", n_sol), ("MEA_DUMMY", 1)])
-    rest = system_from_topology(
-        top, templates, molecules=[("SOL", n_sol)])
+    full = mixture_system([(spce_system(1), n_sol),
+                           (tip4p2005_system(1), 1)])
+    rest = mixture_system([(spce_system(1), n_sol)])
     box = 14.0
     params = RunParams(strict_min_image=False, temperature=300.0,
                        r_cut=6.0, cutoff_mode="site", coulomb="ewald",
@@ -496,7 +486,7 @@ def test_tag_last_molecule_ragged_mixture(reference_dir):
     quat = random_quaternion(jax.random.PRNGKey(21), (n_sol + 1,), F64)
 
     def energy(system, n_keep):
-        mc = MonteCarlo(system, params, dtype=F64, pallas=False,
+        mc = MonteCarlo(system, params, dtype=F64,
                         recompute_chunk=1)
         st = mc.init_state(jax.random.PRNGKey(0), com[:n_keep],
                            quat=quat[:n_keep], box=box, n_chains=1)
@@ -512,7 +502,7 @@ def test_tag_last_molecule_ragged_mixture(reference_dir):
     assert e(st_1) == pytest.approx(e(st_full), rel=1e-12)
     assert e(st_0) == pytest.approx(e(st_rest), rel=1e-12)
 
-    # cross-lambda works on the 11-atom tagged solute telescope exactly
+    # cross-lambda works on the 4-site tagged solute telescope exactly
     d_h = make_deletion_fn(mc_h.system, params, mc_h.kvecs, mc_h.kweights,
                            dtype=F64, chunk=1, species=-1)(st_h)[0]
     d_1x = make_deletion_fn(mc_1.system, params, mc_1.kvecs, mc_1.kweights,

@@ -187,49 +187,6 @@ def test_gcmc_activity_ladder_length_mismatch_raises():
         g.init(jax.random.PRNGKey(0), box=6.0, n_init=4, n_chains=8)
 
 
-def test_gcmc_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret" on the monatomic LJ app: displacement sweeps
-    through the activity-masked kernel on a capacity-sized system copy
-    (identity quaternions), exchanges on the jnp path; carried energy
-    vs dense masked recompute through both."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.mc.gcmc import GCMC
-
-    params = RunParams(strict_min_image=False, temperature=1.5,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.5, dr_max=0.3, use_lrc=False)
-    g = GCMC(lj_system(1), params, activity=0.05, capacity=64,
-             dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), box=6.0, n_init=24, n_chains=4)
-    for _ in range(3):
-        st, stats = g.run_block(st, 150, drift_tol=2e-4)
-    assert int(jnp.sum(st.att[:, 0])) > 0      # kernel displacements
-    assert int(jnp.sum(st.att[:, 1:])) > 0     # jnp exchanges
-
-
-def test_gcmc_mega_full_in_kernel_exchanges():
-    """mega="interpret_full" on the monatomic LJ app: insertions and
-    deletions execute INSIDE the Pallas call too (no jnp exchange
-    scan).  Degenerate interpret stream — gates the energy/activity
-    bookkeeping; the sampled distribution is gated on TPU
-    (docs/validation/gcmc_kernel_exchange.txt) and by the exact
-    ideal-gas lnPi test in tests/test_tmmc.py."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.mc.gcmc import GCMC
-
-    params = RunParams(strict_min_image=False, temperature=1.5,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.7, dr_max=0.3, use_lrc=False)
-    g = GCMC(lj_system(16), params, activity=0.05, capacity=32,
-             dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(0), box=6.0, n_init=10, n_chains=4)
-    for _ in range(3):
-        st, stats = g.run_block(st, 80, drift_tol=1e-3)
-    assert int(jnp.sum(st.att[:, 0])) > 0      # kernel displacements
-    assert int(jnp.sum(st.att[:, 1:])) > 0     # kernel exchanges
-    assert int(jnp.sum(st.acc[:, 1])) > 0      # an insertion landed
-
-
 def test_cli_gcmc_lrc_end_to_end(tmp_path):
     """Round-5 regression: `use_lrc: true` through the CLI config layer
     on an open ensemble.  Every fluctuating-N app REFUSED tail

@@ -164,7 +164,7 @@ def test_binary_ragged_species_widths():
     different atoms-per-molecule): exact full-energy consistency and
     drift through both species' exchanges — the layout the CLI's
     topology-driven binary runs (e.g. water + MEA) rely on."""
-    from tests.test_gcmc_osmotic import lj_plus_trimer
+    from test_gcmc_osmotic import lj_plus_trimer
 
     sys2 = lj_plus_trimer(24, 16)
     params = _lj_params(p_translate=0.5, dphi_max=0.8)
@@ -199,56 +199,6 @@ def test_binary_validation_guards():
         BinaryGCMC(lj_system(8), _lj_params(), activities=(0.1, 0.1))
     with pytest.raises(ValueError, match="pair"):
         BinaryGCMC(sys2, _lj_params(), activities=(0.1,))
-
-
-def test_gcmc_binary_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret" on a TWO-SPECIES system: the species-blocked
-    activity-masked kernel (one call per block) keeps the carried
-    energy and structure factors consistent with the dense masked
-    recompute through kernel sweeps + per-species jnp exchanges."""
-    sys2 = water_two_blocks(6, 6)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = BinaryGCMC(sys2, params, activities=(2e-4, 2e-4),
-                   p_exchange=0.4, dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=(4, 4),
-                n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 40, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0     # kernel sweeps
-    assert int(np.sum(np.asarray(st.att[:, 2:]))) > 0    # jnp exchanges
-
-
-def test_gcmc_binary_mega_full_in_kernel_exchanges():
-    """mega="interpret_full" on a TWO-SPECIES system: each species
-    block's kernel call appends its own in-kernel exchange attempts
-    (global slot ids, block-relative atom columns), threading the
-    updated activity planes between the two calls.  Degenerate
-    interpret stream — gates the two-species bookkeeping (carried
-    energy + structure factors vs the dense recompute) and the
-    per-species counters."""
-    sys2 = water_two_blocks(6, 6)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = BinaryGCMC(sys2, params, activities=(2e-4, 3e-4),
-                   p_exchange=0.4, dtype=jnp.float32,
-                   mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=(4, 4),
-                n_chains=2)
-    for _ in range(3):
-        st, stats = g.run_block(st, 40, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    att = np.asarray(st.att)
-    assert int(att[:, 0].sum()) > 0          # kernel displacements
-    assert int(att[:, 2].sum()) > 0          # species-0 insert attempts
-    assert int(att[:, 4].sum()) > 0          # species-1 insert attempts
-    # at least one insertion landed overall (empty slots + clear poses)
-    assert int(np.asarray(st.acc)[:, [2, 4]].sum()) > 0
 
 
 def test_binary_atom_ok_matches_slots_and_batches():

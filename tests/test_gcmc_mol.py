@@ -310,74 +310,3 @@ def test_gcmc_mol_pose_bias_ewald_drift():
         ins += stats["acc_insert"]
         dels += stats["acc_delete"]
     assert ins > 0.0 and dels > 0.0, (ins, dels)
-
-
-def test_gcmc_mol_mega_kernel_drift_and_bookkeeping():
-    """Activity-masked mega-kernel path (mega="interpret"): the carried
-    energy and structure factors stay consistent with the dense masked
-    recompute through kernel displacement/rotation sweeps interleaved
-    with jnp exchange steps.  Interpret-mode Pallas PRNG returns zeros,
-    so the kernel's proposals are degenerate (deterministic shifts) —
-    this gates the ENERGY/SFAC bookkeeping and the activity masking
-    (inactive slots must be null moves and contribute zero), not the
-    sampling statistics (validated on real TPU, docs/perf.md)."""
-    sys8 = spce_system(8)
-    params = _water_params(temperature=700.0, r_cut=4.5, dr_max=0.25,
-                           dphi_max=0.3, strict_min_image=False)
-    g = MolGCMC(sys8, params, activity=2e-4, p_exchange=0.3,
-                dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=5, n_chains=4)
-    for _ in range(3):
-        # f32 carried-energy residue scales with the TRAVERSAL (each
-        # accepted exchange swings O(1e3) K), not the block endpoints;
-        # the tight gate is sfac_err (acceptance reads fresh pose
-        # energies + carried sfac, never carried E — see mc/tmmc.py)
-        st, stats = g.run_block(st, 44, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    # the kernel path really ran: translation attempts were recorded
-    # through the kernel's active-slot gate
-    assert int(jnp.sum(st.att[:, 0])) > 0
-    # exchanges really ran on the jnp path
-    assert int(jnp.sum(st.att[:, 2] + st.att[:, 3])) > 0
-
-
-def test_gcmc_mol_mega_requires_f32():
-    with pytest.raises(ValueError, match="float32"):
-        MolGCMC(spce_system(8), _water_params(strict_min_image=False),
-                activity=1e-4, mega="interpret")
-
-
-def test_gcmc_mol_mega_full_in_kernel_exchanges():
-    """mega="interpret_full": displacement moves AND exchange attempts
-    run inside ONE Pallas call per cycle (no jnp exchange scan).  The
-    interpret-mode PRNG is degenerate (zeros: every exchange attempt is
-    an insertion at the origin), so this gates the energy/structure-
-    factor/activity bookkeeping of the in-kernel exchange algorithm —
-    the sampled statistics are validated on real TPU
-    (docs/validation)."""
-    sys8 = spce_system(8)
-    params = _water_params(temperature=700.0, r_cut=4.5, dr_max=0.25,
-                           dphi_max=0.3, strict_min_image=False)
-    g = MolGCMC(sys8, params, activity=2e-4, p_exchange=0.3,
-                dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=5, n_chains=4)
-    for _ in range(3):
-        st, stats = g.run_block(st, 44, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    # kernel moves and kernel exchange attempts were both recorded
-    assert int(jnp.sum(st.att[:, 0])) > 0
-    assert int(jnp.sum(st.att[:, 2] + st.att[:, 3])) > 0
-    # the degenerate stream accepted at least one insertion (block 0:
-    # empty slots exist and the origin pose is clear of the lattice)
-    assert int(jnp.sum(st.acc[:, 2])) > 0
-
-
-def test_gcmc_mol_mega_full_validates():
-    sys8 = spce_system(8)
-    params = _water_params(strict_min_image=False)
-    with pytest.raises(ValueError, match="unbiased"):
-        MolGCMC(sys8, params, activity=1e-4, dtype=jnp.float32,
-                n_orient=4, mega="interpret_full")
-    with pytest.raises(ValueError, match="p_exchange"):
-        MolGCMC(sys8, params, activity=1e-4, p_exchange=0.0,
-                dtype=jnp.float32, mega="interpret_full")

@@ -222,68 +222,3 @@ def test_masked_rdf_osmotic_solute_solvent():
     assert np.isfinite(gr).all() and (gr >= 0.0).all()
     tail = gr[r > 2.4].mean()
     assert 0.5 < tail < 2.0, (tail, gr)
-
-
-def test_osmotic_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret": solvent+solute displacement sweeps through the
-    species-blocked activity-masked kernel (solvent columns always on),
-    solute exchanges on the jnp path; carried energy/sfac vs dense
-    recompute.  Water-in-water split exercises the Ewald gate."""
-    w = spce_system(12)
-    sys2 = System(n_mol=12, atoms_per_mol=3, body=w.body,
-                  masses=w.masses, charges=w.charges,
-                  type_ids=w.type_ids, eps_table=w.eps_table,
-                  sig_table=w.sig_table, name="osm-spce",
-                  species=(("solv", 8, 3), ("solu", 4, 3)))
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = OsmoticGCMC(sys2, params, activity=2e-4, p_exchange=0.3,
-                    dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=2, n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 32, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 2:]))) > 0
-
-
-def test_osmotic_mega_ragged_widths():
-    """Ragged species widths (1-site solvent + 3-site solute) through
-    the kernel path: the per-block activity expansion must line up with
-    the ragged atom columns (drift gate, coulomb none)."""
-    sys2 = lj_plus_trimer(10, 6)
-    params = RunParams(strict_min_image=False, temperature=2.0,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.7, dr_max=0.3, dphi_max=0.5,
-                       use_lrc=False)
-    g = OsmoticGCMC(sys2, params, activity=0.05, p_exchange=0.3,
-                    dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(1), box=7.0, n_init=3, n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 26, drift_tol=2e-3)
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-
-
-def test_osmotic_mega_full_in_kernel_exchanges():
-    """mega="interpret_full": solute exchanges run INSIDE the solute
-    block's kernel call (n_exch = (0, x_per) — the solvent block stays
-    a pure displacement sweep); carried energy + structure factors vs
-    the dense recompute, per-type counters mapped from the kernel's
-    per-block exchange columns."""
-    sys2 = water_plus_water(6, 6)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = OsmoticGCMC(sys2, params, activity=2e-4, p_exchange=0.4,
-                    dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_init=3, n_chains=2)
-    for _ in range(3):
-        st, stats = g.run_block(st, 40, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    att = np.asarray(st.att)
-    assert int(att[:, 0].sum()) > 0           # kernel displacements
-    assert int(att[:, 2].sum() + att[:, 3].sum()) > 0   # kernel solute
-    assert int(np.asarray(st.acc)[:, 2].sum()) > 0      # an insertion

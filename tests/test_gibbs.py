@@ -90,26 +90,3 @@ def test_gibbs_lj_coexistence_mu_equality():
     bmu_l = np.log(rl) - np.log(np.mean(b_l))
     bmu_v = np.log(rv) - np.log(np.mean(b_v))
     assert bmu_l == pytest.approx(bmu_v, abs=0.25), (bmu_l, bmu_v)
-
-
-def test_gibbs_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret": monatomic two-box displacement sweeps through
-    the activity-masked kernel (boxes folded over the chain axis),
-    transfers + volume exchanges on the jnp path; carried per-box
-    energies vs dense recompute, total N conserved."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.mc.gibbs import GibbsEnsemble
-
-    params = RunParams(strict_min_image=False, temperature=1.5,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.6, dr_max=0.3, use_lrc=False,
-                       p_volume=0.02)
-    g = GibbsEnsemble(lj_system(1), params, capacity=32,
-                      dv_max=0.05, dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), boxes=(5.0, 6.0),
-                n_init=(16, 8), n_chains=4)
-    for _ in range(3):
-        st, stats = g.run_block(st, 160, drift_tol=5e-4)
-    assert int(jnp.sum(st.att[:, 0])) > 0       # kernel displacements
-    assert int(jnp.sum(st.att[:, 2])) > 0       # jnp transfers
-    assert (np.asarray(st.active.sum(axis=(1, 2))) == 24).all()

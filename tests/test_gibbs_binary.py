@@ -13,7 +13,7 @@ from metropolismontecarlo_tpu.mc.gibbs_binary import (
     make_gibbs_binary,
 )
 from metropolismontecarlo_tpu.models.system import RunParams
-from tests.test_gcmc_binary import lj_two_blocks, water_two_blocks
+from test_gcmc_binary import lj_two_blocks, water_two_blocks
 
 
 def _lj_params(**kw):
@@ -179,7 +179,7 @@ def test_gibbs_binary_ragged_species_widths():
     """RAGGED two-block Gibbs (1-site + 3-site species): drift through
     per-species transfers AND volume exchanges (the rebuild path
     reshapes each species block separately)."""
-    from tests.test_gcmc_osmotic import lj_plus_trimer
+    from test_gcmc_osmotic import lj_plus_trimer
 
     params = _lj_params(p_translate=0.5, dphi_max=0.8, p_volume=0.02)
     g = BinaryGibbsEnsemble(lj_plus_trimer(20, 12), params,
@@ -242,96 +242,6 @@ def test_gibbs_binary_guards():
                n_chains=2)
 
 
-def test_gibbs_binary_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret" on the two-box two-species ensemble: boxes fold
-    over the chain axis, species blocks run one kernel call each;
-    carried per-box energies/structure factors stay consistent with
-    the dense recompute through kernel sweeps + jnp transfer/volume
-    cycles, and per-species total N is conserved."""
-    from metropolismontecarlo_tpu.ops.ewald import tune_parameters
-    from tests.test_gcmc_binary import water_two_blocks as w2b
-
-    kappa_l, nk, ksq = tune_parameters(12.0, 4.5, 5e-3)
-    params = RunParams(strict_min_image=False, temperature=700.0,
-                       r_cut=4.5, cutoff_mode="site", coulomb="ewald",
-                       use_lrc=False, p_translate=0.5, dr_max=0.3,
-                       dphi_max=0.3, p_volume=0.02, kappa_L=kappa_l,
-                       nk=nk, ksq_max=ksq)
-    g = BinaryGibbsEnsemble(w2b(6, 6), params, dv_max=0.02,
-                            p_transfer=0.4, dtype=jnp.float32,
-                            mega="interpret")
-    st = g.init(jax.random.PRNGKey(6), boxes=(10.0, 12.0),
-                n_init=[[4, 2], [2, 4]], n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 56, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 3:]))) > 0
-    assert (np.asarray(st.active0.sum(axis=(1, 2))) == 6).all()
-    assert (np.asarray(st.active1.sum(axis=(1, 2))) == 6).all()
-
-
-def test_gibbs_binary_mega_full_in_kernel_transfers():
-    """mega="interpret_full": per-species TRANSFERS run inside the
-    gibbs kernel (one call per species block, m_start/a_start statics,
-    activity planes threaded — moves.make_mega_gibbs_binary_fn).
-    Gates: carried per-box energy/structure factors == dense recompute
-    through kernel cycles + jnp volume exchanges, per-species total N
-    conserved, transfers attempted for BOTH species."""
-    from metropolismontecarlo_tpu.ops.ewald import tune_parameters
-    from tests.test_gcmc_binary import water_two_blocks as w2b
-
-    kappa_l, nk, ksq = tune_parameters(12.0, 4.5, 5e-3)
-    params = RunParams(strict_min_image=False, temperature=700.0,
-                       r_cut=4.5, cutoff_mode="site", coulomb="ewald",
-                       use_lrc=False, p_translate=0.5, dr_max=0.3,
-                       dphi_max=0.3, p_volume=0.02, kappa_L=kappa_l,
-                       nk=nk, ksq_max=ksq)
-    g = BinaryGibbsEnsemble(w2b(6, 6), params, dv_max=0.02,
-                            p_transfer=0.4, dtype=jnp.float32,
-                            mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(6), boxes=(10.0, 12.0),
-                n_init=[[4, 2], [2, 4]], n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 60, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 3]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 4]))) > 0
-    assert (np.asarray(st.active0.sum(axis=(1, 2))) == 6).all()
-    assert (np.asarray(st.active1.sum(axis=(1, 2))) == 6).all()
-
-
-def test_gibbs_binary_mega_full_ragged():
-    """Ragged widths (1-site LJ + 3-site trimer) through the in-kernel
-    per-species transfer path: drift + per-species N conservation."""
-    from tests.test_gcmc_osmotic import lj_plus_trimer
-
-    params = _lj_params(p_translate=0.5, dphi_max=0.8, p_volume=0.02,
-                        temperature=2.0)
-    g = BinaryGibbsEnsemble(lj_plus_trimer(20, 12), params,
-                            dv_max=0.05, p_transfer=0.4,
-                            dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(13), boxes=(5.5, 6.5),
-                n_init=[[10, 6], [4, 6]], n_chains=4)
-    st, stats = g.run_block(st, 200, drift_tol=2e-3)
-    assert (np.asarray(st.active0.sum(axis=(1, 2))) == 16).all()
-    assert (np.asarray(st.active1.sum(axis=(1, 2))) == 10).all()
-    assert int(np.sum(np.asarray(st.att[:, 3:]))) > 0
-
-
-def test_gibbs_binary_mega_full_validates():
-    from tests.test_gcmc_binary import water_two_blocks as w2b
-
-    params = _lj_params(p_translate=0.5, dphi_max=0.5)
-    with pytest.raises(ValueError, match="n_orient=1"):
-        make_gibbs_binary(w2b(4, 4), params, p_transfer=0.3,
-                          dtype=jnp.float32, n_orient=4, mega="full")
-    with pytest.raises(ValueError, match="0 < p_transfer"):
-        make_gibbs_binary(w2b(4, 4), params, p_transfer=0.0,
-                          dtype=jnp.float32, mega="full")
-
-
 def test_gibbs_binary_npt_ideal_gamma_exact():
     """NPT-Gibbs (constant-pressure binary Gibbs): at eps = q = 0 with
     transfers off, each box is an independent ideal-gas NPT cell and
@@ -364,23 +274,3 @@ def test_gibbs_binary_npt_ideal_gamma_exact():
             (b, vb.mean(), mean_exact, sem)
         assert abs(vb.var() - var_exact) < 0.25 * var_exact, \
             (b, vb.var(), var_exact)
-
-
-def test_gibbs_binary_npt_mega_full_drift():
-    """NPT-Gibbs composed with the in-kernel transfer path: volume
-    moves against the bath stay on the jnp cadence, transfers run in
-    the gibbs kernel; drift + per-species N conservation hold."""
-    from tests.test_gcmc_osmotic import lj_plus_trimer
-
-    params = _lj_params(p_translate=0.5, dphi_max=0.8, p_volume=0.02,
-                        temperature=2.0)
-    g = BinaryGibbsEnsemble(lj_plus_trimer(20, 12), params,
-                            dv_max=0.1, p_transfer=0.4,
-                            dtype=jnp.float32, mega="interpret_full",
-                            npt_pressure=0.2)
-    st = g.init(jax.random.PRNGKey(13), boxes=(5.5, 6.5),
-                n_init=[[10, 6], [4, 6]], n_chains=4)
-    st, stats = g.run_block(st, 200, drift_tol=2e-3)
-    assert (np.asarray(st.active0.sum(axis=(1, 2))) == 16).all()
-    assert (np.asarray(st.active1.sum(axis=(1, 2))) == 10).all()
-    assert stats["acc_vol"] > 0.0, stats

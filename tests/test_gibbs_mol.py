@@ -215,45 +215,6 @@ def test_gibbs_mol_pressure_ideal_gas_exact():
     assert np.allclose(p, n * 1.4 / v, rtol=1e-9), p
 
 
-def test_gibbs_mol_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret": the two boxes fold over the chain axis into one
-    activity-masked kernel sweep; carried per-box energies/structure
-    factors stay consistent with the dense recompute through kernel
-    sweeps + jnp transfer/volume cycles, and total N is conserved.
-    (Interpret-mode PRNG is degenerate — this gates bookkeeping and
-    masking, not sampling statistics; see test_gcmc_mol.)"""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.ops.ewald import tune_parameters
-
-    kl, nk, ksq = tune_parameters(13.0, 4.5, 1e-3)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
-                       use_lrc=False, p_translate=0.5, p_volume=0.02,
-                       dr_max=0.3, dphi_max=0.3,
-                       strict_min_image=False)
-    g = MolGibbsEnsemble(spce_system(8), params, dv_max=0.02,
-                         p_transfer=0.4, dtype=jnp.float32,
-                         mega="interpret")
-    st = g.init(jax.random.PRNGKey(4), boxes=(11.0, 13.0),
-                n_init=(6, 2), n_chains=4)
-    for _ in range(2):
-        st, stats = g.run_block(st, 54, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    # kernel displacements and jnp transfers both ran
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 3]))) > 0
-    # transfers conserve total N
-    assert (np.asarray(st.active.sum(axis=(1, 2))) == 8).all()
-
-
-def test_gibbs_mol_mega_requires_f32():
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="none", use_lrc=False, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, strict_min_image=False)
-    with pytest.raises(ValueError, match="float32"):
-        MolGibbsEnsemble(spce_system(8), params, mega="interpret")
-
-
 def test_gibbs_mol_widom_works_ideal_bar_zero():
     """Ideal rigid rotor: insertion and deletion works are exactly zero
     in both boxes, so the two-sided BAR mu_ex is exactly zero and
@@ -302,77 +263,3 @@ def test_gibbs_mol_widom_works_matches_boltzmann():
                   axis=2)
     np.testing.assert_allclose(bw2, bw, rtol=1e-5)
     assert np.isfinite(np.asarray(dd)).all()
-
-
-def test_gibbs_mol_mega_full_in_kernel_transfers():
-    """mega="interpret_full": both boxes fold into ONE kernel row and
-    transfer attempts (deletion from the source box + insertion into
-    the destination, each box's own kappa/self-intra constants) run
-    INSIDE the Pallas call; volume exchanges stay jnp.  The interpret-
-    mode PRNG is degenerate (zeros: every transfer is box0 -> box1 at
-    the origin), so this gates the per-box energy/structure-factor/
-    activity bookkeeping of the in-kernel transfer algorithm — sampled
-    statistics are validated on real TPU (docs/validation)."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.ops.ewald import tune_parameters
-
-    kl, nk, ksq = tune_parameters(13.0, 4.5, 1e-3)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", kappa_L=kl, nk=nk, ksq_max=ksq,
-                       use_lrc=False, p_translate=0.5, p_volume=0.02,
-                       dr_max=0.3, dphi_max=0.3,
-                       strict_min_image=False)
-    g = MolGibbsEnsemble(spce_system(8), params, dv_max=0.02,
-                         p_transfer=0.4, dtype=jnp.float32,
-                         mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(4), boxes=(11.0, 13.0),
-                n_init=(6, 2), n_chains=4)
-    for _ in range(2):
-        st, stats = g.run_block(st, 54, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    # kernel moves, kernel transfer attempts and volume attempts all ran
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 3]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 2]))) > 0
-    # the degenerate stream accepts at least the first 0 -> 1 transfer
-    # (the origin pose of the roomier box is clear of the lattice)
-    assert int(np.sum(np.asarray(st.acc[:, 3]))) > 0
-    # transfers conserve total N
-    assert (np.asarray(st.active.sum(axis=(1, 2))) == 8).all()
-
-
-def test_gibbs_mol_mega_full_lj_triatomic_drift():
-    """The coulomb="none" corner of the in-kernel transfer path (no
-    structure factors, no exchange constants beyond self/intra = 0):
-    energy bookkeeping must stay exact through kernel transfer cycles
-    on a purely repulsive triatomic."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.models.polyatomic import (
-        triatomic_system,
-    )
-
-    params = RunParams(strict_min_image=False, temperature=2.0,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.5, p_volume=0.0, dr_max=0.3,
-                       dphi_max=0.5, use_lrc=False)
-    g = MolGibbsEnsemble(triatomic_system(16), params, p_transfer=0.3,
-                         dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(1), boxes=(9.0, 10.0),
-                n_init=(10, 4), n_chains=4)
-    for _ in range(2):
-        st, stats = g.run_block(st, 80, drift_tol=2e-3)
-    assert (np.asarray(st.active.sum(axis=(1, 2))) == 14).all()
-
-
-def test_gibbs_mol_mega_full_validates():
-    import jax.numpy as jnp
-
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="none", use_lrc=False, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, strict_min_image=False)
-    with pytest.raises(ValueError, match="unbiased"):
-        MolGibbsEnsemble(spce_system(8), params, n_orient=4,
-                         dtype=jnp.float32, mega="interpret_full")
-    with pytest.raises(ValueError, match="p_transfer"):
-        MolGibbsEnsemble(spce_system(8), params, p_transfer=0.0,
-                         dtype=jnp.float32, mega="interpret_full")

@@ -206,7 +206,7 @@ def test_dipole_accumulator_spce():
     com = jnp.asarray([[3.0, 4.0, 5.0]], jnp.float64)
     body = jnp.asarray(np.asarray(sys1.body), jnp.float64)
     coords = (com[:, None, :] + rotate_vectors(quat, body)).reshape(-1, 3)
-    mc1 = MonteCarlo(sys1, p1, dtype=jnp.float64, pallas=False,
+    mc1 = MonteCarlo(sys1, p1, dtype=jnp.float64,
                      recompute_chunk=1)
     st1 = mc1.init_from_coords(jax.random.PRNGKey(0), coords, com, box=box,
                                n_chains=1)
@@ -223,7 +223,7 @@ def test_dipole_accumulator_spce():
     body2 = jnp.asarray(np.asarray(sys2.body), jnp.float64)
     coords2 = (com2[:, None, :]
                + rotate_vectors(quat2, body2)).reshape(-1, 3)
-    mc2 = MonteCarlo(sys2, p1, dtype=jnp.float64, pallas=False,
+    mc2 = MonteCarlo(sys2, p1, dtype=jnp.float64,
                      recompute_chunk=1)
     st2 = mc2.init_from_coords(jax.random.PRNGKey(0), coords2, com2,
                                box=box, n_chains=1)

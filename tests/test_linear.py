@@ -123,44 +123,6 @@ def test_linear_kabsch_roundtrip():
                                    atol=1e-10, err_msg=system.name)
 
 
-def test_co2_pallas_sweep_matches_jnp():
-    """Mixed LJ types (C/O tables) through the per-move Pallas kernel in
-    interpret mode: same accept decisions and energies as the jnp path."""
-    system = co2_system(8)
-    params = RunParams(temperature=300.0, r_cut=5.0, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3)
-    com0 = cubic_lattice(8, 14.0)
-    mc_j = MonteCarlo(system, params, dtype=jnp.float32, pallas=False)
-    mc_p = MonteCarlo(system, params, dtype=jnp.float32, pallas="interpret")
-    s_j = mc_j.init_state(jax.random.PRNGKey(0), com0, box=14.0, n_chains=8)
-    s_p = mc_p.init_state(jax.random.PRNGKey(0), com0, box=14.0, n_chains=8)
-    out_j = mc_j.run_steps(s_j, 2, False)
-    out_p = mc_p.run_steps(s_p, 2, False)
-    np.testing.assert_array_equal(np.asarray(out_p.acc), np.asarray(out_j.acc))
-    np.testing.assert_allclose(np.asarray(out_p.energy),
-                               np.asarray(out_j.energy), rtol=2e-4)
-
-
-def test_co2_mega_interpret_bookkeeping():
-    """Mega whole-sweep kernel with TWO nonzero LJ types (C/O cross
-    terms): interpreter-mode delta-energy bookkeeping must match the
-    dense recompute."""
-    system = co2_system(8)
-    params = RunParams(temperature=300.0, r_cut=5.0, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.4)
-    mc = MonteCarlo(system, params, dtype=jnp.float32,
-                    pallas="mega_interpret", recompute_chunk=4)
-    state = mc.init_state(jax.random.PRNGKey(0), cubic_lattice(8, 14.0),
-                          box=14.0, n_chains=8)
-    state = mc.run_steps(state, 2, False)
-    e, _, _ = mc.full_energy(state)
-    rel = np.abs(np.asarray(e) - np.asarray(state.energy)) \
-        / np.maximum(np.abs(np.asarray(e)), 1.0)
-    assert rel.max() < 2e-4, rel
-
-
 def test_linear_nvt_drift_and_rotation():
     """f64 NVT runs of both species: carried energy vs recompute through
     translations and rotations of the linear bodies (N2 also exercises a

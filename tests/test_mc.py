@@ -349,20 +349,20 @@ def test_pressure_fd_ideal_gas_exact():
     np.testing.assert_allclose(p_fd, rho * t, rtol=1e-9)
 
 
-def test_exact_virial_matches_fd_all_styles(reference_dir):
+def test_exact_virial_matches_fd_all_styles():
     """The closed-form molecular virial (energy_breakdown "w", carried in
     state.virial) must reproduce the finite-difference pressure — the
     dU/dV of the very model being sampled, including the kappa = 5.6/box
     convention and the reciprocal-Ewald term — for every coulomb style.
     This is the exact replacement of the reference's E/3 approximation
-    (`Ewald/energy.jl:1004-1021`)."""
-    import os
-
+    (`Ewald/energy.jl:1004-1021`).  Seeded 64-water lattice start."""
     from metropolismontecarlo_tpu.models.energy import pressure
-    from metropolismontecarlo_tpu.models.water import spce_from_nist
+    from metropolismontecarlo_tpu.models.water import spce_system
 
-    path = os.path.join(reference_dir, "Ewald",
-                        "spce_sample_config_periodic1.txt")
+    # r_cut = 6.2 sits between lattice shells (3.25 * [sqrt 3, 2]), so no
+    # COM pair lies on the cutoff under the FD box scaling
+    system, box = spce_system(64), 13.0
+    com = cubic_lattice(system.n_mol, box)
     cases = [("ewald", "site", "pairwise"), ("wolf", "site", "pairwise"),
              ("bare", "site", "pairwise"), ("none", "site", "pairwise"),
              # molecular cutoff modes: wolf keeps only SITE pairs inside
@@ -370,14 +370,13 @@ def test_exact_virial_matches_fd_all_styles(reference_dir):
              ("ewald", "com", "pairwise"), ("wolf", "com", "pairwise"),
              ("wolf", "first", "reference")]
     for style, mode, wstyle in cases:
-        system, coords, com, box = spce_from_nist(path)
-        params = RunParams(temperature=298.15, r_cut=10.0,
+        params = RunParams(temperature=298.15, r_cut=6.2,
                            cutoff_mode=mode, coulomb=style,
                            wolf_style=wstyle)
         mc = MonteCarlo(system, params, dtype=jnp.float64,
-                        recompute_chunk=2, pallas=False)
-        state = mc.init_from_coords(jax.random.PRNGKey(0), coords, com, box,
-                                    n_chains=2)
+                        recompute_chunk=2)
+        state = mc.init_state(jax.random.PRNGKey(0), com, box=box,
+                              n_chains=2)
         p_fd = float(mc.pressure_fd(state, rel_eps=1e-6)[0])
         p_v = float(pressure(params, system.n_mol,
                              float(state.box[0]) ** 3, state.virial)[0])

@@ -1,15 +1,14 @@
-"""Ragged species-blocked storage (mixed MEA+TIP3P): a 3-atom water next
-to an 11-atom MEA owns 3 atom columns, not 11.  These tests pin the
-ragged layout against the uniform-width padded representation (which is
-exact by construction: pad slots have zero charge/epsilon) and check the
-move paths keep the drift invariant on ragged systems.
+"""Ragged species-blocked storage (mixed TIP4P/2005 + SPC/E): a 3-atom
+water next to a 4-atom water owns 3 atom columns, not 4.  These tests pin
+the ragged layout against the uniform-width padded representation (which
+is exact by construction: pad slots have zero charge/epsilon) and check
+the move paths keep the drift invariant on ragged systems.
 
-Reference: `topol.top` + `mea.pdb`/`tip3p.pdb` are the reference's own
-mixed-species inputs (`Ewald/setup.jl:446-537` per-molecule arrays).
+Reference analogue: the per-molecule arrays of the reference's
+mixed-species setup (`Ewald/setup.jl:446-537`).
 """
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -17,59 +16,50 @@ import numpy as np
 
 from metropolismontecarlo_tpu.io.configs import cubic_lattice
 from metropolismontecarlo_tpu.mc.driver import MonteCarlo
+from metropolismontecarlo_tpu.models.mixture import mixture_system
 from metropolismontecarlo_tpu.models.system import RunParams
+from metropolismontecarlo_tpu.models.water import spce_system, tip4p2005_system
 
 PARAMS = RunParams(temperature=298.15, r_cut=6.0, cutoff_mode="site",
                    coulomb="ewald", nk=4, ksq_max=16, p_translate=0.5,
                    dr_max=0.25, dphi_max=0.25)
 
 
-def _mixture(reference_dir, n_mea=4, n_sol=28):
-    from metropolismontecarlo_tpu.io.topology import read_top
-    from metropolismontecarlo_tpu.models.from_topology import (
-        system_from_topology,
-        templates_from_pdbs,
-    )
-
-    top = read_top(os.path.join(reference_dir, "topol.top"))
-    templates = templates_from_pdbs(top, {
-        "MEA_DUMMY": os.path.join(reference_dir, "mea.pdb"),
-        "SOL": os.path.join(reference_dir, "tip3p.pdb")})
-    return system_from_topology(
-        top, templates, molecules=[("MEA_DUMMY", n_mea), ("SOL", n_sol)])
+def _mixture(n_wide=4, n_sol=28):
+    """n_wide 4-site TIP4P/2005 molecules, then n_sol 3-site SPC/E."""
+    return mixture_system([(tip4p2005_system(1), n_wide),
+                           (spce_system(1), n_sol)])
 
 
-def test_ragged_layout_bookkeeping(reference_dir):
-    system = _mixture(reference_dir)
+def test_ragged_layout_bookkeeping():
+    system = _mixture()
     assert not system.uniform_width
-    assert system.n_atoms == 4 * 11 + 28 * 3
-    assert [s[:2] for s in system.species] == [("MEA_DUMMY", 4), ("SOL", 28)]
+    assert system.n_atoms == 4 * 4 + 28 * 3
+    assert [s[:2] for s in system.species] == [("tip4p2005", 4),
+                                               ("spce", 28)]
     mol, slot = system.atom_mol_slot
     assert mol.shape == (system.n_atoms,)
     a0 = system.mol_a0
-    assert a0[4] == 44 and a0[5] == 47  # first water starts after 4 MEA
+    assert a0[4] == 16 and a0[5] == 19  # first SPC/E after 4 TIP4P
     # flat() drops per-molecule pad slots
     q = system.flat(system.charges)
     assert q.shape == (system.n_atoms,)
-    # neutral up to the reference topology's own 1e-6/molecule rounding
-    assert abs(float(np.sum(q))) < 1e-5
+    assert abs(float(np.sum(q))) < 1e-12
 
 
-def test_ragged_energy_matches_uniform_width_twin(reference_dir):
+def test_ragged_energy_matches_uniform_width_twin():
     """The ragged layout must reproduce the uniform-width padded layout
     (exact by construction) for every energy component and the virial."""
     from metropolismontecarlo_tpu.models.energy import energy_breakdown_jit
     from metropolismontecarlo_tpu.ops.ewald import make_kvectors
 
-    system = _mixture(reference_dir)
+    system = _mixture()
     uni = dataclasses.replace(system, species=None)
     box = 20.0
     kv, kw = make_kvectors(PARAMS.nk, PARAMS.ksq_max)
 
-    mc_r = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2,
-                      pallas=False)
-    mc_u = MonteCarlo(uni, PARAMS, dtype=jnp.float64, recompute_chunk=2,
-                      pallas=False)
+    mc_r = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2)
+    mc_u = MonteCarlo(uni, PARAMS, dtype=jnp.float64, recompute_chunk=2)
     st_r = mc_r.init_state(jax.random.PRNGKey(0),
                            cubic_lattice(system.n_mol, box), box=box,
                            n_chains=2)
@@ -87,12 +77,11 @@ def test_ragged_energy_matches_uniform_width_twin(reference_dir):
         assert abs(a - b) <= 1e-9 * max(abs(a), 1.0), (k, a, b)
 
 
-def test_ragged_move_path_drift(reference_dir):
+def test_ragged_move_path_drift():
     """Per-species sweep bodies on the ragged layout: accumulated deltas
     must match the full recompute (f64, jnp path)."""
-    system = _mixture(reference_dir)
-    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2,
-                    pallas=False)
+    system = _mixture()
+    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2)
     state = mc.init_state(jax.random.PRNGKey(1),
                           cubic_lattice(system.n_mol, 20.0), box=20.0,
                           n_chains=4)
@@ -103,13 +92,12 @@ def test_ragged_move_path_drift(reference_dir):
     assert metrics["acc_rot"] > 0.02
 
 
-def test_ragged_virial_matches_fd(reference_dir):
+def test_ragged_virial_matches_fd():
     """The exact molecular virial holds on ragged mixtures too."""
     from metropolismontecarlo_tpu.models.energy import pressure
 
-    system = _mixture(reference_dir, n_mea=2, n_sol=12)
-    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2,
-                    pallas=False)
+    system = _mixture(n_wide=2, n_sol=12)
+    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2)
     state = mc.init_state(jax.random.PRNGKey(2),
                           cubic_lattice(system.n_mol, 14.0), box=14.0,
                           n_chains=2)
@@ -120,16 +108,15 @@ def test_ragged_virial_matches_fd(reference_dir):
     assert abs(p_v - p_fd) < 1e-5 * max(abs(p_fd), 1.0), (p_v, p_fd)
 
 
-def test_ragged_npt_volume_drift(reference_dir):
+def test_ragged_npt_volume_drift():
     """NPT volume moves on the RAGGED mixture: the volume move rebuilds
     atoms through the driver's ragged-aware build_coords and must keep
     the drift invariant (accumulated deltas + accepted recomputes ==
     fresh recompute) through accepted volume changes."""
     params = dataclasses.replace(PARAMS, pressure=0.0024, p_volume=0.5,
                                  dv_max=0.05, strict_min_image=False)
-    system = _mixture(reference_dir, n_mea=2, n_sol=12)
-    mc = MonteCarlo(system, params, dtype=jnp.float64, recompute_chunk=2,
-                    pallas=False)
+    system = _mixture(n_wide=2, n_sol=12)
+    mc = MonteCarlo(system, params, dtype=jnp.float64, recompute_chunk=2)
     state = mc.init_state(jax.random.PRNGKey(3),
                           cubic_lattice(system.n_mol, 14.0), box=14.0,
                           n_chains=4)
@@ -142,7 +129,7 @@ def test_ragged_npt_volume_drift(reference_dir):
     assert float(jnp.max(jnp.abs(state.box - 14.0))) > 0.0  # moved volume
 
 
-def test_tp_full_energy_ragged(reference_dir):
+def test_tp_full_energy_ragged():
     """Tensor-parallel recompute on a RAGGED mixture: the row-sharded
     tiled path must match the unsharded full_energy (the row padding to
     block*shards multiples and the per-species intra terms must survive
@@ -150,10 +137,9 @@ def test_tp_full_energy_ragged(reference_dir):
     from metropolismontecarlo_tpu.parallel.tp import (
         make_mesh_2d, tp_full_energy_fn)
 
-    system = _mixture(reference_dir)
+    system = _mixture()
     box = 16.0
-    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2,
-                    pallas=False)
+    mc = MonteCarlo(system, PARAMS, dtype=jnp.float64, recompute_chunk=2)
     state = mc.init_state(jax.random.PRNGKey(2),
                           cubic_lattice(system.n_mol, box), box=box,
                           n_chains=4)

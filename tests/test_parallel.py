@@ -32,6 +32,21 @@ def test_mesh_uses_8_devices():
     assert mesh.size == 8
 
 
+def test_make_mesh_raises_without_enough_devices():
+    """Asking for more devices than the backend has is an error; no other
+    platform's devices are substituted."""
+    with pytest.raises(ValueError, match="16 devices requested"):
+        make_mesh(16)
+
+
+def test_make_mesh_2d_raises_without_enough_devices():
+    from metropolismontecarlo_tpu.parallel.tp import make_mesh_2d
+
+    with pytest.raises(ValueError, match="needs 12 devices"):
+        make_mesh_2d(3, 4)
+    assert make_mesh_2d(2, 4).devices.shape == (2, 4)
+
+
 def test_sharded_sweep_matches_unsharded():
     mc, state = _tiny_water_mc(16)
     ref = mc.run_steps(state, 2, False)
@@ -96,8 +111,8 @@ def test_remc_preserves_ewald_consistency():
 
 
 def test_shard_map_run_steps_matches_unsharded():
-    """Explicit shard_map execution (the path Pallas kernels need on real
-    multi-chip hardware) must reproduce the unsharded run bitwise."""
+    """Explicit shard_map execution (each device advances its own chains)
+    must reproduce the unsharded run bitwise."""
     from metropolismontecarlo_tpu.parallel.mesh import sharded_run_steps
 
     mc, state = _tiny_water_mc(16)

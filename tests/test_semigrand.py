@@ -3,7 +3,6 @@ composition statistics — ideal AND fully interacting identical species —
 plus the Ewald drift invariant through flips."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -128,116 +127,3 @@ def test_semigrand_validation_guards():
     g = Semigrand(water_two_blocks(8, 8), params, fugacity_ratio=1.0)
     with pytest.raises(ValueError, match="capacity"):
         g.init(jax.random.PRNGKey(0), box=12.0, n_a=6, n_b=6, n_chains=2)
-
-
-def test_semigrand_mega_kernel_drift_and_bookkeeping():
-    """mega="interpret": displacement/rotation sweeps through the
-    species-blocked activity-masked kernel, identity flips on the jnp
-    path; carried energy/sfac vs dense recompute, total N conserved."""
-    sys2 = water_two_blocks(8, 8)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = Semigrand(sys2, params, fugacity_ratio=2.0, p_flip=0.3,
-                  dtype=jnp.float32, mega="interpret")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_a=5, n_b=3,
-                n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 44, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 2:]))) > 0
-    assert (np.asarray(st.active.sum(axis=1)) == 8).all()
-
-
-def test_semigrand_mega_full_in_kernel_flips():
-    """mega="interpret_full": identity flips run inside the dedicated
-    flip kernel (ops.pallas.flip_kernel — both species' templates in
-    one call), sweeps through the per-block sweep kernel.  The
-    interpret-mode PRNG is degenerate, so this gates the flip path's
-    energy/structure-factor/activity bookkeeping; sampled statistics
-    validate on real TPU (docs/validation/semigrand_kernel.txt)."""
-    sys2 = water_two_blocks(8, 8)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    g = Semigrand(sys2, params, fugacity_ratio=2.0, p_flip=0.3,
-                  dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(0), box=10.0, n_a=5, n_b=3,
-                n_chains=2)
-    for _ in range(2):
-        st, stats = g.run_block(st, 44, drift_tol=2e-3)
-        assert stats["sfac_err_max"] < 1e-4, stats
-    assert int(np.sum(np.asarray(st.att[:, 0]))) > 0
-    assert int(np.sum(np.asarray(st.att[:, 2:]))) > 0
-    assert (np.asarray(st.active.sum(axis=1)) == 8).all()
-
-
-def test_semigrand_mega_full_ragged_drift():
-    """The ragged corner (monatomic A + triatomic B, no charges)
-    through the in-kernel flip path: energy bookkeeping exact through
-    unequal-width identity swaps."""
-    sys2 = two_block_lj(24, 24, eps_a=1.0, eps_b=0.6)
-    params = RunParams(strict_min_image=False, temperature=2.0,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.5, dr_max=0.3, dphi_max=0.5,
-                       use_lrc=False)
-    g = Semigrand(sys2, params, fugacity_ratio=1.5, p_flip=0.3,
-                  dtype=jnp.float32, mega="interpret_full")
-    st = g.init(jax.random.PRNGKey(2), box=9.0, n_a=12, n_b=8,
-                n_chains=4)
-    for _ in range(2):
-        st, stats = g.run_block(st, 60, drift_tol=2e-3)
-    assert (np.asarray(st.active.sum(axis=1)) == 20).all()
-
-
-def test_semigrand_mega_full_validates():
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="none", use_lrc=False, p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.3, strict_min_image=False)
-    with pytest.raises(ValueError, match="unbiased"):
-        Semigrand(water_two_blocks(8, 8), params, fugacity_ratio=1.0,
-                  n_orient=4, dtype=jnp.float32, mega="interpret_full")
-    with pytest.raises(ValueError, match="p_flip"):
-        Semigrand(water_two_blocks(8, 8), params, fugacity_ratio=1.0,
-                  p_flip=0.0, dtype=jnp.float32, mega="interpret_full")
-
-
-def test_mega_flip_empty_active_set_guard():
-    """ADVICE-r4 guard, kernel-level: with ZERO active molecules the
-    argmax-of-uniforms pick degenerates to slot 0, and the `smax >= 0`
-    term must make acceptance impossible (an accepted flip of an
-    inactive slot would CREATE a molecule).  Unreachable through the
-    Semigrand app (init requires n_a + n_b >= 1), so this drives
-    moves.make_mega_flip_fn directly with an all-inactive chain.  The
-    interpret-mode PRNG returns zeros, which makes the log-uniform
-    maximally permissive (ln 1e-30 = -69) — acceptance here hinges
-    exactly on the guard, not on luck."""
-    from metropolismontecarlo_tpu.mc.moves import make_mega_flip_fn
-
-    sys2 = two_block_lj(8, 8)
-    params = RunParams(strict_min_image=False, temperature=2.0,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.5, dr_max=0.3, dphi_max=0.5,
-                       use_lrc=False)
-    flips = make_mega_flip_fn(sys2, params, None, None,
-                              fugacity_ratio=2.0, interpret=True,
-                              n_flip=4)
-    C, M, A_pad = 2, sys2.n_mol, sys2.n_atoms_padded
-    com = jnp.zeros((C, M, 3), jnp.float32)
-    quat = jnp.zeros((C, M, 4), jnp.float32).at[..., 0].set(1.0)
-    coords = jnp.zeros((C, 3, A_pad), jnp.float32)
-    active = jnp.zeros((C, M), bool)
-    box = jnp.full((C,), 9.0, jnp.float32)
-    sfac = jnp.zeros((C, 1, 2), jnp.float32)
-    si2 = jnp.zeros((C, 2), jnp.float32)
-    out = flips(com, quat, coords, active, box, sfac,
-                jnp.arange(C, dtype=jnp.int32), jnp.zeros((), jnp.int32),
-                si2)
-    com_o, quat_o, coords_o, active_o, sfac_o, d_e, acc, att = out
-    assert not bool(jnp.any(active_o)), "flip created a molecule"
-    assert int(np.sum(np.asarray(acc))) == 0
-    assert float(np.max(np.abs(np.asarray(d_e)))) == 0.0
-    np.testing.assert_array_equal(np.asarray(com_o), np.asarray(com))

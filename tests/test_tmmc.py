@@ -13,7 +13,6 @@ checks, not regressions.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 from scipy.special import gammaln
@@ -280,85 +279,3 @@ def test_cli_tmmc_end_to_end(tmp_path):
 def test_empty_cmat_raises():
     with pytest.raises(ValueError, match="no measured transitions"):
         lnpi_from_cmat(np.zeros((10, 3)))
-
-
-def test_ideal_gas_lnpi_exact_mega():
-    """The mega composition (kernel displacement sweeps + jnp exchange
-    cycles) must leave the TM estimator exact for the ideal gas: the
-    deposits still happen only in exchange-only cycles whose p_x
-    constant cancels in every lnPi ratio.  f32 path: the ideal-gas
-    deposits are closed forms evaluated in f32, so the tolerance is
-    f32-rounding wide."""
-    import jax.numpy as jnp
-
-    box, z = 5.0, 0.08
-    params = _params()
-    t = TMMC(lj_system(1, eps=0.0), params, activity=z, capacity=48,
-             dtype=jnp.float32, mega="interpret")
-    st = t.init(jax.random.PRNGKey(0), box=box, n_init=10, n_chains=64)
-    for _ in range(6):
-        st, stats = t.run_block(st, 1500)
-    lnpi = t.lnpi()
-    fin = np.isfinite(lnpi)
-    exact = _ideal_lnpi(z * box**3, 48)
-    i0 = np.where(fin)[0][0]
-    d = (lnpi - lnpi[i0]) - (exact - exact[i0])
-    assert np.sum(fin) > 15
-    assert np.max(np.abs(d[fin])) < 1e-4, np.max(np.abs(d[fin]))
-
-
-def test_tmmc_mega_full_zero_bias_bit_identical():
-    """The fully in-kernel monatomic TMMC (mega="interpret_full") with
-    eta = 0 reproduces the plain mega="interpret_full" GCMC build
-    bit-for-bit (in-kernel, tmmc evaluates BOTH exchange branches per
-    attempt; the plain build evaluates the selected one — this gates
-    that the two layouts agree to the last bit)."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.mc.gcmc import make_gcmc
-    from metropolismontecarlo_tpu.mc.tmmc import make_tmmc
-
-    params = RunParams(strict_min_image=False, temperature=1.5,
-                       r_cut=2.5, cutoff_mode="site", coulomb="none",
-                       p_translate=0.5, dr_max=0.3, use_lrc=False)
-    sys_ = lj_system(16)
-    init_g, run_g, _ = make_gcmc(sys_, params, 0.05, 32, jnp.float32,
-                                 mega="interpret_full")
-    init_t, run_t, _ = make_tmmc(sys_, params, 0.05, 32, jnp.float32,
-                                 mega="interpret_full")
-    st_g = init_g(jax.random.PRNGKey(0), 6.0, 10, 4)
-    st_t = init_t(jax.random.PRNGKey(0), 6.0, 10, 4)
-    for _ in range(3):
-        st_g = run_g(st_g, 80)
-        st_t, cm, _ = run_t(st_t, np.zeros(33), 80)
-    for a, b, name in zip(st_g, st_t, st_g._fields):
-        assert jnp.array_equal(a, b), name
-    # one unit of row mass per in-kernel attempt
-    x_per = max(1, round(32 * 0.5 / 0.5))
-    n_cyc = max(1, round(80 / (32 + x_per)))
-    assert np.allclose(np.asarray(cm).sum(axis=(1, 2)), n_cyc * x_per)
-
-
-def test_ideal_gas_lnpi_exact_mega_full():
-    """Ideal-gas lnPi through the IN-KERNEL deposits (mega=
-    "interpret_full"): the Rao-Blackwellized collection matrix is
-    assembled inside the Pallas kernel from f32 closed forms; the
-    estimator must still be exact on the visited range (the degenerate
-    interpret stream inserts every attempt, so each chain climbs
-    0 -> cap depositing the exact pa's at every N)."""
-    import jax.numpy as jnp
-    from metropolismontecarlo_tpu.mc.tmmc import make_tmmc
-
-    box, z = 5.0, 0.08
-    params = _params()
-    init_t, run_t, _ = make_tmmc(lj_system(16, eps=0.0), params,
-                                 activity=z, capacity=48,
-                                 dtype=jnp.float32,
-                                 mega="interpret_full")
-    st = init_t(jax.random.PRNGKey(1), box, 0, 2)
-    st, cm, _ = run_t(st, np.zeros(49), 300)
-    lnpi, visited = lnpi_from_cmat(np.asarray(cm, np.float64).sum(axis=0))
-    exact = _ideal_lnpi(z * box**3, 48)
-    fin = np.where(visited)[0]
-    assert fin.size >= 40, fin
-    d = (lnpi[fin] - lnpi[fin[0]]) - (exact[fin] - exact[fin[0]])
-    assert np.max(np.abs(d)) < 1e-4, np.max(np.abs(d))

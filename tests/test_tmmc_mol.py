@@ -84,116 +84,3 @@ def test_tmmc_mol_spce_bias_drift_invariant():
     assert stats["sfac_err_max"] < 1e-8, stats
     assert stats["acc_insert"] > 0.0 or stats["acc_delete"] > 0.0, stats
     assert stats["n_max"] <= 12 and stats["n_min"] >= 0
-
-
-def test_tmmc_mol_mega_zero_bias_bit_identical_to_mega_gcmc():
-    """The mega (kernel-sweep) TMMC composition with eta = 0 must
-    reproduce the mega plain-GCMC composition bit-for-bit: identical
-    key-splitting, identical kernel streams, identical jnp exchange
-    steps; the bias enters acceptance thresholds only.  Interpret-mode
-    kernel (CPU) — degenerate proposals still exercise every branch of
-    the composition."""
-    sys_ = spce_system(8)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    init_g, run_g, _ = make_gcmc_mol(sys_, params, activity=2e-4,
-                                     p_exchange=0.4, dtype=jnp.float32,
-                                     mega="interpret")
-    init_t, run_t, _ = make_gcmc_mol(sys_, params, activity=2e-4,
-                                     p_exchange=0.4, dtype=jnp.float32,
-                                     tmmc=True, mega="interpret")
-    st_g = init_g(jax.random.PRNGKey(9), box=10.0, n_init=4, n_chains=2)
-    st_t = init_t(jax.random.PRNGKey(9), box=10.0, n_init=4, n_chains=2)
-    st_g = run_g(st_g, 36)
-    st_t, cmat, _ = run_t(st_t, np.zeros(9), 36)
-    for a, b, name in zip(st_g, st_t, st_g._fields):
-        assert jnp.array_equal(a, b), name
-    # deposits come from the exchange-only jnp steps of each cycle
-    assert float(np.asarray(cmat).sum()) > 0.0
-
-
-def test_tmmc_mol_mega_full_zero_bias_bit_identical():
-    """The FULLY in-kernel TMMC variant (mega="interpret_full":
-    exchanges and Rao-Blackwellized deposits inside the Pallas call)
-    with eta = 0 must reproduce the plain mega="interpret_full" GCMC
-    build bit-for-bit — in-kernel, the tmmc build evaluates BOTH
-    exchange branches per attempt while the plain build evaluates only
-    the selected one, so this also gates that the two evaluation
-    layouts agree to the last bit."""
-    sys_ = spce_system(8)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    init_g, run_g, _ = make_gcmc_mol(sys_, params, activity=2e-4,
-                                     p_exchange=0.3, dtype=jnp.float32,
-                                     mega="interpret_full")
-    init_t, run_t, _ = make_gcmc_mol(sys_, params, activity=2e-4,
-                                     p_exchange=0.3, dtype=jnp.float32,
-                                     tmmc=True, mega="interpret_full")
-    st_g = init_g(jax.random.PRNGKey(9), box=10.0, n_init=4, n_chains=2)
-    st_t = init_t(jax.random.PRNGKey(9), box=10.0, n_init=4, n_chains=2)
-    st_g = run_g(st_g, 44)
-    st_t, cmat, uhist = run_t(st_t, np.zeros(9), 44)
-    for a, b, name in zip(st_g, st_t, st_g._fields):
-        assert jnp.array_equal(a, b), name
-    # every in-kernel attempt deposits exactly one unit of row mass:
-    # n_cyc = round(44 / (8 + x_per)) cycles x x_per attempts
-    x_per = max(1, round(8 * 0.3 / 0.7))
-    n_cyc = max(1, round(44 / (8 + x_per)))
-    assert np.allclose(np.asarray(cmat).sum(axis=(1, 2)), n_cyc * x_per)
-    assert np.allclose(np.asarray(uhist)[:, :, 0].sum(axis=1),
-                       n_cyc * x_per)
-
-
-def test_tmmc_mol_mega_full_ideal_rotor_exact_lnpi():
-    """Ideal rigid rotor (eps = q = 0) through the IN-KERNEL deposit
-    path: the Rao-Blackwellized deposits are deterministic per N, so
-    ln Pi from the kernel's collection matrix equals N ln(zV) - ln N!
-    to f32 roundoff on the visited range — even under the degenerate
-    interpret-mode stream (every attempt inserts; each chain climbs
-    0 -> cap depositing the exact pa's at every N on the way)."""
-    z, box = 0.02, 6.0
-    cap = 8
-    sys_ = triatomic_system(cap, eps=0.0)
-    params = _lj_params(p_translate=0.5)
-    init_t, run_t, _ = make_gcmc_mol(sys_, params, activity=z,
-                                     p_exchange=0.5, dtype=jnp.float32,
-                                     tmmc=True, mega="interpret_full")
-    st = init_t(jax.random.PRNGKey(1), box=box, n_init=0, n_chains=2)
-    st, cmat, _ = run_t(st, np.zeros(cap + 1), 64)
-    cm = np.asarray(cmat, np.float64).sum(axis=0)
-    lnpi, visited = lnpi_from_cmat(cm)
-    n = np.arange(len(lnpi), dtype=np.float64)
-    exact = n * np.log(z * box**3) - gammaln(n + 1.0)
-    fin = np.where(visited)[0]
-    assert fin.size >= cap, fin
-    d = (lnpi[fin] - lnpi[fin[0]]) - (exact[fin] - exact[fin[0]])
-    assert np.max(np.abs(d)) < 1e-5, np.max(np.abs(d))
-
-
-def test_tmmc_mol_mega_full_eta_blocks_exchanges():
-    """Nonzero bias through the IN-KERNEL eta lookup: a -1e6 wall on
-    every slice except the start pins N (all exchange moves rejected by
-    the biased threshold), while the unbiased Rao-Blackwellized
-    deposits keep accumulating — bias must touch acceptance only."""
-    sys_ = spce_system(8)
-    params = RunParams(temperature=700.0, r_cut=4.5, cutoff_mode="site",
-                       coulomb="ewald", nk=3, ksq_max=9, p_translate=0.5,
-                       dr_max=0.25, dphi_max=0.3, use_lrc=False,
-                       strict_min_image=False)
-    init_t, run_t, _ = make_gcmc_mol(sys_, params, activity=2e-4,
-                                     p_exchange=0.3, dtype=jnp.float32,
-                                     tmmc=True, mega="interpret_full")
-    st = init_t(jax.random.PRNGKey(9), box=10.0, n_init=4, n_chains=2)
-    eta = np.full(9, -1.0e6)
-    eta[4] = 0.0
-    st, cmat, _ = run_t(st, eta, 44)
-    n = np.asarray(jnp.sum(st.active, axis=1))
-    assert np.all(n == 4), n
-    # deposits are the UNBIASED probabilities — mass still lands at N=4
-    cm = np.asarray(cmat).sum(axis=0)
-    assert cm[4].sum() > 0.0
-    assert np.all(cm[np.arange(9) != 4].sum(axis=1) == 0.0)

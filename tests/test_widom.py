@@ -43,7 +43,7 @@ def _du_vs_recompute(params, ghost_com, seed=7, box=12.0, m=8):
     body_t = jnp.asarray(np.asarray(sys9.body)[m], F64)
     ra_t = com_t[None, :] + rotate_vectors(quat_t, body_t)
 
-    mc = MonteCarlo(sys8, params, dtype=F64, pallas=False, recompute_chunk=1)
+    mc = MonteCarlo(sys8, params, dtype=F64, recompute_chunk=1)
     state = mc.init_from_coords(jax.random.PRNGKey(0), coords8, com8,
                                 box=box, n_chains=1)
     widom_du, _ = make_widom_fn(sys8, params, mc.kvecs, mc.kweights,
@@ -92,7 +92,7 @@ def test_widom_du_monatomic_matches_numpy():
     params = RunParams(strict_min_image=False, temperature=1.5, r_cut=rc,
                        coulomb="none", p_translate=1.0, use_lrc=False)
     com = np.asarray(cubic_lattice(n, box), np.float64)
-    mc = MonteCarlo(system, params, dtype=F64, pallas=False,
+    mc = MonteCarlo(system, params, dtype=F64,
                     recompute_chunk=1)
     state = mc.init_from_coords(jax.random.PRNGKey(0), com, com, box=box,
                                 n_chains=1)
@@ -119,7 +119,7 @@ def test_widom_sampler_and_mu_shapes():
     params = RunParams(strict_min_image=False, temperature=2.0, r_cut=3.0,
                        coulomb="none", p_translate=1.0, use_lrc=False)
     com = np.asarray(cubic_lattice(n, box), np.float64)
-    mc = MonteCarlo(system, params, dtype=F64, pallas=False,
+    mc = MonteCarlo(system, params, dtype=F64,
                     recompute_chunk=2)
     state = mc.init_from_coords(jax.random.PRNGKey(0), com, com, box=box,
                                 n_chains=4)
@@ -140,7 +140,7 @@ def test_widom_overlap_vetoed():
     params = RunParams(temperature=300.0, r_cut=5.0, nk=3, ksq_max=9,
                        coulomb="ewald")
     sys8, com8, quat8, coords8 = _water_pose(8, 12.0, 3)
-    mc = MonteCarlo(sys8, params, dtype=F64, pallas=False, recompute_chunk=1)
+    mc = MonteCarlo(sys8, params, dtype=F64, recompute_chunk=1)
     state = mc.init_from_coords(jax.random.PRNGKey(0), coords8, com8,
                                 box=12.0, n_chains=1)
     widom_du, _ = make_widom_fn(sys8, params, mc.kvecs, mc.kweights,
@@ -165,7 +165,7 @@ def test_widom_low_density_virial_limit():
     params = RunParams(strict_min_image=False, temperature=t, r_cut=rc,
                        coulomb="none", p_translate=1.0, dr_max=1.0,
                        use_lrc=False)
-    mc = MonteCarlo(system, params, dtype=F64, pallas=False,
+    mc = MonteCarlo(system, params, dtype=F64,
                     recompute_chunk=8)
     com = np.asarray(cubic_lattice(n, box), np.float64)
     state = mc.init_from_coords(jax.random.PRNGKey(0), com, com, box=box,
@@ -189,82 +189,3 @@ def test_widom_low_density_virial_limit():
     # O(rho^2) corrections and sampling noise: 15% of the (small) signal
     assert abs(beta_mu - expect) < max(0.15 * abs(expect), 5e-4), (
         beta_mu, expect)
-
-
-def test_widom_mega_kernel_matches_pose_eval_water():
-    """In-kernel Widom (ops/pallas/sweep_kernel n_widom, interpret
-    mode): the interpreter's degenerate PRNG (zeros) makes every ghost
-    pose identical — the origin position with the Shoemake quaternion
-    of u = 0, (w,x,y,z) = (0,1,0,0) — so the kernel's deposited
-    Boltzmann mean must equal exp(-beta du) with du from the jnp
-    widom_du at that exact pose on the POST-SWEEP state.  This pins
-    the in-kernel ghost energy (pair + erfc + recip + self/intra) to
-    the independently-implemented pose evaluator; the sampling
-    statistics are validated on real TPU (docs/validation)."""
-    from metropolismontecarlo_tpu.mc.widom import make_mega_widom_fn
-
-    m, box, t = 8, 10.0, 500.0
-    sys8 = spce_system(m)
-    params = RunParams(temperature=t, r_cut=4.5, nk=3, ksq_max=9,
-                       coulomb="ewald", strict_min_image=False)
-    mc = MonteCarlo(sys8, params, dtype=jnp.float32, pallas=False)
-    state = mc.init_state(jax.random.PRNGKey(0),
-                          cubic_lattice(m, box), box=box, n_chains=4)
-    n_g = 5
-    wm = make_mega_widom_fn(sys8, params, mc.kvecs, mc.kweights, n_g,
-                            interpret=True)
-    state2, b = wm(state, jnp.asarray(0, jnp.int32))
-
-    com_t = jnp.zeros((4, 1, 3), jnp.float32)
-    quat_t = jnp.zeros((4, 1, 4), jnp.float32).at[..., 1].set(1.0)
-    widom_du, _ = make_widom_fn(sys8, params, mc.kvecs, mc.kweights,
-                                dtype=jnp.float32)
-    du, ovr = widom_du(state2, com_t, quat_t)
-    expect = np.where(np.asarray(ovr)[:, 0], 0.0,
-                      np.exp(-np.asarray(du)[:, 0] / t))
-    np.testing.assert_allclose(np.asarray(b), expect, rtol=1e-3,
-                               atol=1e-30)
-    # the sweep really ran (kernel move attempts were recorded) and the
-    # ghost evaluations never touched state (all molecules still active
-    # == fixed N: energy bookkeeping is gated by the drift tests of the
-    # activity-masked sweep path)
-    assert int(jnp.sum(state2.att[:, 0] + state2.att[:, 1])) == 4 * m
-
-
-def test_widom_mega_kernel_monatomic_lrc_folded():
-    """P=1 kernel Widom with LRC on: the position-independent LRC
-    increment is folded outside the kernel, so b must equal
-    exp(-beta (du_pair + d_lrc)) exactly like the jnp route."""
-    from metropolismontecarlo_tpu.mc.widom import make_mega_widom_fn
-
-    n, box, t = 27, 9.0, 1.5
-    system = lj_system(n)
-    params = RunParams(strict_min_image=False, temperature=t, r_cut=2.5,
-                       coulomb="none", p_translate=1.0, use_lrc=True)
-    mc = MonteCarlo(system, params, dtype=jnp.float32, pallas=False)
-    com = np.asarray(cubic_lattice(n, box), np.float64)
-    state = mc.init_state(jax.random.PRNGKey(1), jnp.asarray(com),
-                          box=box, n_chains=2)
-    wm = make_mega_widom_fn(system, params, None, None, 3,
-                            interpret=True)
-    state2, b = wm(state, jnp.asarray(7, jnp.int32))
-    widom_du, _ = make_widom_fn(system, params, None, None,
-                                dtype=jnp.float32)
-    com_t = jnp.zeros((2, 1, 3), jnp.float32)
-    quat_t = jnp.zeros((2, 1, 4), jnp.float32).at[..., 0].set(1.0)
-    du, _ = widom_du(state2, com_t, quat_t)
-    expect = np.exp(-np.asarray(du)[:, 0] / t)
-    np.testing.assert_allclose(np.asarray(b), expect, rtol=1e-3,
-                               atol=1e-30)
-
-
-def test_widom_mega_validates():
-    from metropolismontecarlo_tpu.mc.widom import make_mega_widom_fn
-
-    sys8 = spce_system(8)
-    with pytest.raises(ValueError, match="surface"):
-        make_mega_widom_fn(
-            sys8, RunParams(temperature=300.0, r_cut=4.5, nk=3, ksq_max=9,
-                            coulomb="ewald", ewald_surface=True,
-                            strict_min_image=False),
-            None, None, 4, interpret=True)

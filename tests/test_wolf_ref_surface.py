@@ -78,7 +78,7 @@ def test_wolf_conventions_match_numpy(style):
     box = 9.0
     params = RunParams(temperature=300.0, r_cut=4.0, cutoff_mode="site",
                        coulomb="wolf", wolf_style=style, use_lrc=False)
-    mc = MonteCarlo(system, params, dtype=jnp.float64, pallas=False)
+    mc = MonteCarlo(system, params, dtype=jnp.float64)
     com = np.array([[1.0, 1.2, 0.9], [3.1, 1.0, 1.1],
                     [1.1, 3.9, 2.2], [5.5, 5.0, 4.8]])
     state = mc.init_state(jax.random.PRNGKey(0), com, box=box, n_chains=1)
@@ -102,9 +102,9 @@ def test_wolf_ref_drift_and_distinct():
     base = dict(temperature=300.0, r_cut=5.0, cutoff_mode="site",
                 coulomb="wolf", p_translate=0.5, dr_max=0.25, dphi_max=0.3)
     mc_ref = MonteCarlo(system, RunParams(wolf_style="ref", **base),
-                        dtype=jnp.float64, pallas=False, recompute_chunk=4)
+                        dtype=jnp.float64, recompute_chunk=4)
     mc_pw = MonteCarlo(system, RunParams(wolf_style="pairwise", **base),
-                       dtype=jnp.float64, pallas=False, recompute_chunk=4)
+                       dtype=jnp.float64, recompute_chunk=4)
     com0 = cubic_lattice(8, 12.0)
     s_ref = mc_ref.init_state(jax.random.PRNGKey(1), com0, box=12.0,
                               n_chains=4)
@@ -114,20 +114,6 @@ def test_wolf_ref_drift_and_distinct():
     assert not np.allclose(np.asarray(s_ref.energy), np.asarray(s_pw.energy))
     s_ref, m = mc_ref.run_block(s_ref, 3, adjust=False)
     assert m["drift_max_rel"] < 1e-10, m["drift_max_rel"]
-
-
-def test_wolf_ref_mega_interpret_drift():
-    """The mega kernel's wolf_ref branch keeps the drift invariant."""
-    system = spce_system(8)
-    params = RunParams(temperature=300.0, r_cut=5.0, cutoff_mode="site",
-                       coulomb="wolf", wolf_style="ref", p_translate=0.5,
-                       dr_max=0.3, dphi_max=0.4)
-    mc = MonteCarlo(system, params, dtype=jnp.float32,
-                    pallas="mega_interpret", recompute_chunk=4)
-    state = mc.init_state(jax.random.PRNGKey(2), cubic_lattice(8, 12.0),
-                          box=12.0, n_chains=8)
-    state, m = mc.run_block(state, 3, adjust=False)
-    assert m["drift_max_rel"] < 5e-5, m["drift_max_rel"]
 
 
 def test_ewald_surface_term():
@@ -145,9 +131,8 @@ def test_ewald_surface_term():
     p_off = RunParams(**base)
     kv, kw = make_kvectors(3, 9)
 
-    mc = MonteCarlo(system, p_on, dtype=jnp.float64, pallas=False,
+    mc = MonteCarlo(system, p_on, dtype=jnp.float64,
                     recompute_chunk=4)
-    assert mc.pallas_mode is None
     com0 = cubic_lattice(8, box)
     state = mc.init_state(jax.random.PRNGKey(3), com0, box=box, n_chains=4)
 
